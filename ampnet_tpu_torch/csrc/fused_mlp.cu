@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -41,6 +43,10 @@ constexpr int kColsPerThread = 8;
 constexpr int kMaxWidth = kColThreads * kColsPerThread;  // 256
 constexpr int kSlab = 16;
 constexpr int kMaxLayers = 4;
+// the largest dynamic shared memory a launch asks for: two kMaxWidth-wide
+// ping-pong tiles and a kMaxWidth-wide weight slab (144 KB)
+constexpr size_t kMaxSmem = sizeof(float) * (2 * kTileRows * kMaxWidth + kSlab * kMaxWidth);
+constexpr int kMaxDevices = 64;
 
 struct Chain {
   const float* w[kMaxLayers];  // [cin_l, cout_l] row-major
@@ -203,6 +209,28 @@ __global__ void pool_kernel(const float* __restrict__ partial, int tiles, int co
   pooled[idx] = m;
 }
 
+// Raise chain_kernel's dynamic shared-memory limit on the current device to
+// kMaxSmem, once. The limit belongs to the function on the whole device, not
+// to one launch: setting it per call to that call's own size would let a
+// concurrent caller's smaller setting land between another's setting and its
+// launch, and that launch would then fail.
+cudaError_t ensure_smem_limit() {
+  static std::mutex mu;
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kMaxSmem);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int fused_mlp_chain_tile_rows(void) { return kTileRows; }
@@ -248,8 +276,7 @@ extern "C" int fused_mlp_chain_f32(
   const size_t smem = sizeof(float) * ((size_t)2 * kTileRows * chain.stride +
                                        (size_t)kSlab * chain.wmax);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = ensure_smem_limit();
   if (err != cudaSuccess) return (int)err;
   chain_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
       x, n, chain, relu_last, acts, pooled != nullptr ? partial : nullptr, tiles);

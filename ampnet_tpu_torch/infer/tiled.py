@@ -1,11 +1,13 @@
 """Arbitrary-scale tiled inference with stitched per-point predictions,
 counterpart of ``ampnet_tpu/infer/tiled.py``.
 
-Per cloud, one bucket program does everything on the device:
+Per bucket of B same-shape clouds, one bucket program does everything on the
+device, batched over the clouds as the JAX program is:
 
-1. balanced k-means tiling on (x, y, NDVI) (``utils/utils.py:500-505``),
+1. balanced k-means tiling on (x, y, NDVI) (``utils/utils.py:500-505``), each
+   cloud's reductions over its own points,
 2. static-shape cluster grouping via a stable argsort,
-3. the window encoder + attention forward over ``[1, k, cap, F]``,
+3. the window encoder + attention forward over ``[B, k, cap, F]``,
 4. scatter of the predictions back to the original point order.
 
 Static shapes come from replicate padding: the cloud is padded up to
@@ -21,12 +23,12 @@ data-dependent shape. ``fetch_many`` waits on each bucket's event, so it may
 run on another thread than the one that enqueued the work. All of it runs on
 the device's current stream.
 
-Within a bucket the clouds run one after another, each at its full
-``[1, k, cap]`` shape: a cloud's labels then never depend on which other
-requests shared its micro-batch (batched reductions and matmuls may pick
-other kernels, and so other summation orders, for other batch sizes), and
-each cloud already fills the card (18 × 4096 points are 1,152 blocks of the
-fused kernel). Batching amortizes the upload, the event and the fetch.
+A bucket costs the same number of kernel launches whatever B is, so
+concurrent requests share the launch cost, which bounds the tiling on the
+host. In exact arithmetic a cloud's labels do not depend on its co-batched
+clouds. In fp32 a batched reduction or matmul may take its sums in another
+order than the same work at B = 1, so a few labels near a tie may differ,
+as in the JAX package (whose program is compiled per padded batch shape).
 
 Not ported yet: ``EnsembleInferencer``, ``evaluate_dataset`` and the mesh
 (ROADMAP.md Queue 1, items 3 and 5).
@@ -166,44 +168,53 @@ class TiledInferencer:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _run_cloud(self, k: int, cap: int, probs: bool, points, scale, offset,
-                   seed: int, init_idx=None):
-        """One cloud's bucket program: ``points`` [k*cap, F] in the wire dtype
-        on the device → (labels [n] int8, probs [n, C] float16 or None) in
-        the original point order."""
-        n, f = points.shape
+    def _run_bucket(self, k: int, cap: int, probs: bool, points, scale, offset, init):
+        """One bucket program: ``points`` [B, k*cap, F] in the wire dtype on
+        the device, ``init`` [B, k] k-means init indices (None for k = 1) →
+        (labels [B, n] int8, probs [B, n, C] float16 or None) in each
+        cloud's original point order."""
+        b, n, f = points.shape
         int8_wire = self.transfer_dtype == np.dtype(np.int8)
 
         def to_f32(x, s, o):
             # wire decode: f16/f32 upcast; int8 is the affine dequant of
-            # _encode_batch (no index tensors: they would need an upload)
+            # _encode_batch, per cloud (no index tensors: they would need an
+            # upload)
             x = x.float()
-            return (x + 127.0) * s + o if int8_wire else x
+            return (x + 127.0) * s[:, None, :] + o[:, None, :] if int8_wire else x
 
         if k > 1:
             pick = lambda t: torch.stack([t[..., c] for c in KMEANS_FEATURE_IDX], dim=-1)
             kfeats = to_f32(pick(points), pick(scale), pick(offset))
-            gen = torch.Generator(device=self.device).manual_seed(int(seed))
             assign, _ = balanced_kmeans(
-                kfeats, k, generator=gen, capacities=(cap,) * k,
+                kfeats, k, capacities=(cap,) * k,
                 lloyd_mode="argmin" if self.tiler == "fast" else "sinkhorn",
-                init_idx=init_idx,
+                init_idx=init,
             )
-            order = torch.argsort(assign, stable=True)
+            order = torch.argsort(assign, dim=-1, stable=True)  # [B, n]
+            # the reorder gather runs in the wire dtype; decode after it
+            points = torch.gather(points, 1, order[..., None].expand(b, n, f))
         else:
-            order = torch.arange(n, device=points.device)
-        # the reorder gather runs in the wire dtype; decode after it
-        windows = to_f32(points.index_select(0, order), scale, offset).reshape(1, k, cap, f)
-        centroids = windows[..., :2].mean(dim=2)  # [1, k, 2]
+            order = torch.arange(n, device=points.device).expand(b, n)
+        windows = to_f32(points, scale, offset).reshape(b, k, cap, f)
+        centroids = windows[..., :2].mean(dim=2)  # [B, k, 2]
         logits = self._forward(windows, centroids, None)
-        preds = logits.argmax(dim=-1).reshape(n).to(torch.int8)
+        preds = logits.argmax(dim=-1).reshape(b, n).to(torch.int8)
         # int8 labels (num_classes ≤ 127) quarter the result traffic
-        flat = torch.zeros(n, dtype=torch.int8, device=points.device).index_copy_(0, order, preds)
+        flat = torch.zeros_like(preds).scatter_(1, order, preds)
         if not probs:
             return flat, None
-        p = torch.softmax(logits, dim=-1).reshape(n, -1).to(torch.float16)
-        pflat = torch.zeros_like(p).index_copy_(0, order, p)
+        p = torch.softmax(logits, dim=-1).reshape(b, n, -1).to(torch.float16)
+        pflat = torch.zeros_like(p).scatter_(1, order[..., None].expand_as(p), p)
         return flat, pflat
+
+    def _init_idx(self, n: int, k: int, seed: int, given) -> torch.Tensor:
+        """A cloud's [k] k-means init indices: ``given`` when not None, else
+        the first k of a permutation from a generator seeded by ``seed``."""
+        if given is not None:
+            return self._upload(np.asarray(given, np.int64))
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return torch.randperm(n, generator=gen, device=self.device)[:k]
 
     def _encode_batch(self, rows: np.ndarray):
         """Wire-encode a [B, N, F] cloud batch → (encoded, scales, offsets).
@@ -300,15 +311,10 @@ class TiledInferencer:
             pts, sc, off = self._upload(enc), self._upload(scales), self._upload(offsets)
             # grad mode is per thread: each launching thread sets its own
             with torch.inference_mode():
-                outs = [
-                    self._run_cloud(
-                        k, cap, return_probs, pts[r], sc[r], off[r], seeds[i],
-                        None if init_idx is None or init_idx[i] is None
-                        else self._upload(np.asarray(init_idx[i], np.int64)))
-                    for r, i in enumerate(idxs)
-                ]
-                flat = torch.stack([o[0] for o in outs])
-                pflat = torch.stack([o[1] for o in outs]) if return_probs else None
+                init = None if k == 1 else torch.stack([
+                    self._init_idx(k * cap, k, seeds[i], None if init_idx is None else init_idx[i])
+                    for i in idxs])
+                flat, pflat = self._run_bucket(k, cap, return_probs, pts, sc, off, init)
             if self.device.type != "cuda":
                 return flat, pflat, None
             # results land in pinned host memory; the event marks the copy done

@@ -5,9 +5,6 @@ on its own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``ampnet_tpu_torch/build/`` (listed in ``.gitignore``), named by the hash of
 its source and flags, so an edited source never loads a stale build. The
 build needs only the checkout and the CUDA toolkit; nothing is downloaded.
-
-``build_all(names)`` starts one ``nvcc`` per source, all at once, for callers
-that want every kernel ready before timing anything.
 """
 
 from __future__ import annotations
@@ -18,22 +15,17 @@ import os
 import shutil
 import subprocess
 import threading
-import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                      "-Xptxas", "-v"]
+FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# per source: {"seconds": build wall time or 0.0 when cached, "log": ptxas output}
-build_info: Dict[str, Dict] = {}
 
 
 def nvcc_path() -> str:
@@ -50,19 +42,15 @@ def _build(name: str) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
     out = BUILD / f"lib{name}-{digest}.so"
     if out.exists():
-        build_info[name] = {"seconds": 0.0, "log": "cached"}
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    t0 = time.perf_counter()
     proc = subprocess.run([nvcc_path(), *FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    build_info[name] = {"seconds": time.perf_counter() - t0,
-                        "log": (proc.stdout + proc.stderr).strip()}
     return out
 
 
@@ -73,13 +61,3 @@ def load(name: str) -> ctypes.CDLL:
             _libs[name] = ctypes.CDLL(str(_build(name)))
         return _libs[name]
 
-
-def build_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
-    """Build (in parallel, one nvcc each) and load every named source."""
-    names = list(names)
-    with ThreadPoolExecutor(max(1, len(names))) as ex:
-        paths = dict(zip(names, ex.map(_build, names)))
-    with _lock:
-        for n, p in paths.items():
-            _libs.setdefault(n, ctypes.CDLL(str(p)))
-        return {n: _libs[n] for n in names}

@@ -116,6 +116,20 @@ def test_json_multi_cloud_probs_matches_jax(pair):
         np.testing.assert_array_equal(np.argmax(probs, axis=1), labels)
 
 
+def test_json_two_buckets_and_a_shared_bucket(pair):
+    """One request whose clouds fall in two bucket shapes (the dispatch runs
+    each bucket from its own thread), two of them sharing one bucket: each
+    answer equals predict_many on the same clouds."""
+    _, srv = pair
+    rng = np.random.default_rng(7)
+    clouds = [rng.normal(size=(n, 9)).astype(np.float32) for n in (260, 150, 250)]
+    payload = json.dumps({"clouds": [c.tolist() for c in clouds]}).encode()
+    out = json.loads(_post(srv, payload, JSON)[2])["labels"]
+    direct = srv.service.inferencer.predict_many(clouds, seeds=[0, 0, 0])
+    for labels, want in zip(out, direct):
+        np.testing.assert_array_equal(np.asarray(labels), want)
+
+
 @pytest.mark.parametrize("wire", ["json", "binary"])
 def test_tta_route_matches_jax(pair, wire):
     jt, srv = pair

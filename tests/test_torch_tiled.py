@@ -44,6 +44,27 @@ def test_balanced_kmeans_matches_jax_with_injected_init(mode, seed):
     assert np.bincount(ta.numpy(), minlength=k).tolist() == list(caps)
 
 
+@pytest.mark.parametrize("mode", ["sinkhorn", "argmin"])
+def test_balanced_kmeans_batch_tiles_each_cloud_as_alone(mode):
+    """A batch of clouds (the bucket program's k-means, vmapped in the JAX
+    package) tiles every cloud as it would be tiled alone."""
+    rng = np.random.default_rng(3)
+    b, n, k = 3, 256, 4
+    feats = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32))
+    init = torch.stack([torch.randperm(n, generator=torch.Generator().manual_seed(s))[:k]
+                        for s in range(b)])
+    caps = (n // k,) * k
+    ba, bc = balanced_kmeans(feats, k, capacities=caps, lloyd_mode=mode, init_idx=init)
+    assert ba.shape == (b, n) and bc.shape == (b, k, 3)
+    for i in range(b):
+        a, c = balanced_kmeans(feats[i], k, capacities=caps, lloyd_mode=mode, init_idx=init[i])
+        np.testing.assert_array_equal(ba[i].numpy(), a.numpy())
+        np.testing.assert_allclose(bc[i].numpy(), c.numpy(), atol=1e-6)
+        assert np.bincount(ba[i].numpy(), minlength=k).tolist() == list(caps)
+    with pytest.raises(ValueError, match="init_idx"):
+        balanced_kmeans(feats, k)
+
+
 def test_round_balanced_breaks_ties_toward_lower_index():
     """Equal scores go to the lower index, as jax.lax.top_k orders them."""
     scores = torch.zeros(6, 2)
