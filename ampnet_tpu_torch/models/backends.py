@@ -10,8 +10,10 @@ command lines carry over).
 * ``'bf16'``   — the same assembly with the per-point chains in bfloat16;
 * ``'fused'``  — the encoder's four chains through the ``fused_mlp_chain``
   CUDA kernel (models/fused_infer.py) + the folded attention/head;
-* ``'int8'``   — not ported yet: it needs ``quantized_mlp_chain``
-  (ROADMAP.md Queue 2).
+* ``'int8'``   — mlp_a and mlp_b through the ``quantized_mlp_chain`` int8
+  CUDA kernel (models/quantized_infer.py), the T-Net trunks through
+  ``fused_mlp_chain``, + the folded attention/head in fp32. Its chains are
+  folded and quantized once, when ``make_forward`` is called.
 
 ``forward(points [B, W, N, F], centroids [B, W, 2], pad_mask)`` returns fp32
 per-point logits. Every non-'xla' backend folds the RUNNING BatchNorm
@@ -32,6 +34,10 @@ import torch
 from ampnet_tpu_torch.core.device import resolve_device
 from ampnet_tpu_torch.models.folded_infer import attention_head_folded, encode_windows_folded
 from ampnet_tpu_torch.models.fused_infer import encode_windows_fused
+from ampnet_tpu_torch.models.quantized_infer import (
+    encode_windows_int8,
+    quantize_encoder_chains,
+)
 
 BACKENDS = ("xla", "folded", "bf16", "fused", "int8")
 
@@ -69,10 +75,6 @@ def make_forward(model, cfg, backend: str = "xla", device="cuda") -> Callable:
             "and does not know the geom-token encoding (att_geom_tokens) — "
             "use backend='xla' for geom-token models"
         )
-    if backend == "int8":
-        raise NotImplementedError(
-            "backend 'int8' needs the quantized_mlp_chain kernel, which is not "
-            "ported yet (ROADMAP.md Queue 2)")
     if cfg.model.context != "attention":
         raise ValueError(f"backend {backend!r} evaluates the attention head; "
                          f"context={cfg.model.context!r} needs backend='xla'")
@@ -89,9 +91,16 @@ def make_forward(model, cfg, backend: str = "xla", device="cuda") -> Callable:
 
         return forward
 
+    if backend == "int8":
+        chains = quantize_encoder_chains(model)
+        encode = lambda points: encode_windows_int8(model, points, chains)
+    else:
+        encode = lambda points: encode_windows_fused(model, points)
+
     def forward(points, centroids, pad_mask):
         with torch.inference_mode():
-            local, glob, _ = encode_windows_fused(model, points)
+            local, glob, _ = encode(points)
+            # the same folded attention + head as the folded backend, fp32
             return attention_head_folded(model, local, glob, centroids, pad_mask,
                                          num_heads=heads)
 

@@ -24,7 +24,8 @@ BUILD = PKG / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two maps below
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -55,9 +56,14 @@ def _build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu`` (built on first call)."""
+    """The built library for ``csrc/<name>.cu`` (built on first call). Two
+    sources build at the same time; one source builds once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(_build(name)))
+            lib = ctypes.CDLL(str(_build(name)))
+            with _lock:
+                _libs[name] = lib
         return _libs[name]
 

@@ -9,27 +9,34 @@ It imports nothing of JAX or of ``ampnet_tpu``. Phases, each of which fails
 the run (non-zero exit, no result line) when it does not hold:
 
 1. card   -- the ``nvidia-smi`` name and power limit line;
-2. build  -- ``nvcc`` builds the serving path's kernel from
-   ``ampnet_tpu_torch/csrc`` for ``sm_90a``;
+2. build  -- ``nvcc`` builds the serving path's kernels (``fused_mlp``,
+   ``quantized_mlp``) from ``ampnet_tpu_torch/csrc`` for ``sm_90a``, one
+   process each, all started together;
 3. kernels -- each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it (and at the bench geometry, a prime
-   window count and ``relu_last=False``), timed with CUDA events beside its
-   bound and the plain version's time; then, untimed, at ragged shapes
-   (``EDGE_CASES``);
+   the shapes the serving path gives it (and at the bench geometry, padded
+   or prime window counts, ``relu_last=False`` and, for the int8 chain, an
+   explicit ``block_windows``), timed with CUDA events beside its bound, the
+   plain version's time and a library yardstick; then, untimed, at ragged
+   shapes (``EDGE_CASES``);
 4. model  -- backend ``fused`` against the module forward (``xla``) at
    ``[2, 18, 4096, 9]``, from seeded random weights and BatchNorm statistics;
-5. serve  -- the ``serve`` entry point (``--backend fused --device cuda``) on
-   127.0.0.1 answers binary and JSON requests for 50,000- and 20,000-point
-   clouds (two bucket shapes, one micro-batch holding both) from concurrent
-   clients; every answer equals a direct ``TiledInferencer.predict_many`` on
-   the same clouds and seeds as the micro-batch it was served in, and the
-   kernel's launch counter shows that every bucket forward went through it;
+   backend ``int8`` against ``xla`` and against the same ``int8`` forward on a
+   CPU copy of the model (the chains' plain versions);
+5. serve  -- the ``serve`` entry point (``--backend fused --device cuda``, then
+   ``--backend int8 --device cuda``) on 127.0.0.1 answers binary and JSON
+   requests for 50,000- and 20,000-point clouds (two bucket shapes, one
+   micro-batch holding both) from concurrent clients; every answer equals a
+   direct ``TiledInferencer.predict_many`` on the same clouds and seeds as
+   the micro-batch it was served in, and the kernels' launch counters show
+   that every bucket forward went through them (fused: 4 ``fused_mlp_chain``
+   launches; int8: 2 ``quantized_mlp_chain`` and 2 ``fused_mlp_chain``);
 6. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -38,22 +45,28 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 SEED = 0
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, and HBM3
+KERNEL_SOURCES = ("fused_mlp", "quantized_mlp")  # ampnet_tpu_torch/csrc/<name>.cu
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense int8 on
+# the tensor cores, and HBM3
 FP32_PEAK_FLOPS = 67e12
+INT8_PEAK_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 # fp32 rounding of sums of up to 256 products, taken in another order than
-# cuBLAS takes them: about K * 2^-24 relative, 1.5e-5 at K = 256
+# cuBLAS takes them: about K * 2^-24 relative, 1.5e-5 at K = 256. The int8
+# chain's kernel and plain version round alike (exact int32 sums, no FMA), so
+# 0 elements are expected to differ there; the bound is the same.
 KERNEL_RTOL = 1e-4
 # k = 18 windows of cap 4096, and k = 9 of cap 4096, at n_points 2048
 SERVE_CLOUD_POINTS = (50_000, 50_000, 50_000, 50_000, 50_000, 20_000, 20_000)
 SERVE_GEOM = (18, 4096)  # (M, N) of one served cloud's chains: 18 windows of 4096 points
 BENCH_GEOM = (288, 2048)  # (M, N) at the bench geometry, 32 clouds x 9 windows
-MODEL_SHAPE = (2, 18, 4096)  # [B, W, N] of the fused-against-xla check
+MODEL_SHAPE = (2, 18, 4096)  # [B, W, N] of the backends-against-xla checks
 
 
 def _say(*parts) -> None:
@@ -116,28 +129,46 @@ def seeded_model(cfg):
     return model.eval()
 
 
-def kernel_err(case, x, ws, bs, kw) -> float:
-    """fused_mlp_chain's kernel against its plain version on the same inputs:
-    the largest absolute difference, which must stay within KERNEL_RTOL of
-    the reference's largest magnitude (at least 1)."""
-    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain, fused_mlp_chain_reference
-
-    out = fused_mlp_chain(x, ws, bs, **kw)
-    ref = fused_mlp_chain_reference(x, ws, bs, **kw)
+def compare(case, out, ref, what="kernel"):
+    """An output against its plain version's on the same inputs → (largest
+    absolute difference, count of elements that differ). The difference must
+    stay within KERNEL_RTOL of the reference's largest magnitude (at least 1)."""
     torch.cuda.synchronize()
     out = out if isinstance(out, tuple) else (out,)
     ref = ref if isinstance(ref, tuple) else (ref,)
-    err, scale = 0.0, 1.0
-    for o, r in zip(out, ref):
+    err, scale, ndiff = 0.0, 1.0, 0
+    for o, r in zip(out, ref, strict=True):
         if o.shape != r.shape or not torch.isfinite(o).all():
-            raise RuntimeError(f"{case}: kernel output {tuple(o.shape)} is not finite "
+            raise RuntimeError(f"{case}: {what} output {tuple(o.shape)} is not finite "
                                f"or not of shape {tuple(r.shape)}")
         err = max(err, (o - r).abs().max().item())
         scale = max(scale, r.abs().max().item())
+        ndiff += int((o != r).sum().item())
     if err > KERNEL_RTOL * scale:
-        raise RuntimeError(f"{case}: kernel disagrees with its plain version: "
+        raise RuntimeError(f"{case}: {what} disagrees with the plain version: "
                            f"max_abs_err {err} > {KERNEL_RTOL} * {scale}")
-    return err
+    return err, ndiff
+
+
+def kernel_err(case, x, ws, bs, kw) -> float:
+    """fused_mlp_chain's kernel against its plain version on the same inputs:
+    the largest absolute difference (``compare``)."""
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain, fused_mlp_chain_reference
+
+    return compare(case, fused_mlp_chain(x, ws, bs, **kw),
+                   fused_mlp_chain_reference(x, ws, bs, **kw))[0]
+
+
+def cuda_launches(fn) -> dict:
+    """Device operations (kernels, memsets, copies) one call of ``fn``
+    enqueues, by name, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:48]: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
 
 # ragged shapes the serving path does not give the kernel, checked untimed:
@@ -152,8 +183,15 @@ EDGE_CASES = [
 
 
 def edge_phase(dev):
-    """Phase 3b: the kernel against its plain version at EDGE_CASES, with
-    seeded random weights (variance 1/fan_in)."""
+    """Phase 3b: both kernels against their plain versions at EDGE_CASES,
+    with seeded random weights (variance 1/fan_in), quantized per channel
+    for the int8 chain."""
+    from ampnet_tpu_torch.ops.quantized_mlp import (
+        quantize_chain,
+        quantized_mlp_chain,
+        quantized_mlp_chain_reference,
+    )
+
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     for m, n, dims, pool, acts, relu_last in EDGE_CASES:
         ws = [torch.randn(a, b, generator=gen, device=dev) / a ** 0.5
@@ -161,8 +199,13 @@ def edge_phase(dev):
         bs = [0.1 * torch.randn(b, generator=gen, device=dev) for b in dims[1:]]
         x = torch.randn(m, n, dims[0], generator=gen, device=dev)
         kw = dict(pool=pool, return_acts=acts, relu_last=relu_last)
-        err = kernel_err(f"edge {m}x{n} {list(dims)}", x, ws, bs, kw)
-        _say(f"  edge M={m} N={n} dims={list(dims)} {kw}: err={err:.3g}")
+        case = f"edge {m}x{n} {list(dims)}"
+        err = kernel_err(case, x, ws, bs, kw)
+        qs, ss = quantize_chain(ws)
+        q_err, q_diff = compare(f"int8 {case}", quantized_mlp_chain(x, qs, ss, bs, **kw),
+                                quantized_mlp_chain_reference(x, qs, ss, bs, **kw))
+        _say(f"  edge M={m} N={n} dims={list(dims)} {kw}: fused err={err:.3g}; "
+             f"int8 err={q_err:.3g}, {q_diff} elements differ")
 
 
 def kernel_phase(model, dev):
@@ -229,8 +272,127 @@ def kernel_phase(model, dev):
     return total, rows
 
 
+def int8_bound(m, n, dims, pool, return_acts):
+    """(bound_ms, bound_by, ops, bytes) of one int8 chain call: int8
+    operations on the tensor cores; fp32 x in, fp32 activations and/or
+    pooled vectors out, int8 weights and fp32 scales and biases in, each once."""
+    ops = 2.0 * m * n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    params = sum(a * b + 8 * b for a, b in zip(dims[:-1], dims[1:]))
+    nbytes = (4.0 * (m * n * dims[0] + (m * n * dims[-1] if return_acts else 0)
+                     + (m * dims[-1] if pool else 0)) + params)
+    t_ops, t_bytes = ops / INT8_PEAK_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def int_mm_chain(x, wq_cols, w_scale, biases, g, pool, relu_last, return_acts):
+    """The same int8 chain as one ``torch._int_mm`` per layer (cuBLASLt) and
+    torch elementwise ops for the quantization: the library yardstick, timed
+    here and used nowhere in the port. ``wq_cols``: each layer's int8 weights
+    as a column-major [K, Cout] view, K zero-padded to a multiple of 8 (12 →
+    16) for ``_int_mm``'s shape rules."""
+    m, n, cin = x.shape
+    pad = -m % g
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, n, cin))], dim=0)
+    h = x.reshape(-1, g * n, cin)
+    for i, (q, s_w, b) in enumerate(zip(wq_cols, w_scale, biases)):
+        amax = h.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-12)
+        s_x = amax / torch.full_like(amax, 127.0)
+        hq = torch.round(h / s_x).clamp_(-127, 127).to(torch.int8)
+        if hq.shape[-1] != q.shape[0]:
+            hq = torch.nn.functional.pad(hq, (0, q.shape[0] - hq.shape[-1]))
+        acc = torch._int_mm(hq.reshape(-1, q.shape[0]), q).reshape(*h.shape[:2], -1)
+        h = acc.float() * (s_x * s_w) + b
+        if i < len(wq_cols) - 1 or relu_last:
+            h = torch.relu(h)
+    h = h.reshape(-1, n, h.shape[-1])[:m]
+    if pool and return_acts:
+        return h, h.amax(dim=1)
+    return h.amax(dim=1) if pool else h
+
+
+def quantized_phase(model, dev):
+    """Phase 3c: quantized_mlp_chain against its plain version, with the
+    seeded model's folded and quantized mlp_a and mlp_b → (the per-forward
+    row, the two serving chains summed; one row per case)."""
+    from ampnet_tpu_torch.models.quantized_infer import quantize_encoder_chains
+    from ampnet_tpu_torch.ops.quantized_mlp import (
+        block_windows_for,
+        quantized_mlp_chain,
+        quantized_mlp_chain_reference,
+    )
+
+    mlp_a, mlp_b = quantize_encoder_chains(model)
+    chains = {"mlp_a": (mlp_a, False, True), "mlp_b": (mlp_b, True, False)}
+    # (case, chain, M, N, pool, return_acts, relu_last, block_windows); the
+    # padded case has g = 4 and 3 zero windows, bench:mlp_a g = 2
+    cases = [(f"serve:{c}", c, *SERVE_GEOM, p, a, True, 0) for c, (_, p, a) in chains.items()]
+    cases += [(f"bench:{c}", c, *BENCH_GEOM, p, a, True, 0) for c, (_, p, a) in chains.items()]
+    cases += [("padded_m:mlp_a", "mlp_a", 37, 1000, True, True, True, 0),
+              ("relu_last_false:mlp_b", "mlp_b", 5, 100, True, True, False, 0),
+              ("block_windows_3:mlp_a", "mlp_a", *SERVE_GEOM, False, True, True, 3)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = []
+    for case, chain, m, n, pool, acts, relu_last, bw in cases:
+        (wq, s_w, bs), _, _ = chains[chain]
+        dims = [wq[0].shape[0]] + [q.shape[1] for q in wq]
+        g = block_windows_for(m, n, max(dims[1:]), bw)
+        # column-major [K, Cout] weights, K padded to a multiple of 8
+        wq_cols = [torch.nn.functional.pad(q, (0, 0, 0, -q.shape[0] % 8)).t().contiguous().t()
+                   for q in wq]
+        x = torch.randn(m, n, dims[0], generator=gen, device=dev)
+        kw = dict(pool=pool, return_acts=acts, relu_last=relu_last, block_windows=bw)
+        kern = lambda: quantized_mlp_chain(x, wq, s_w, bs, **kw)
+        plain = lambda: quantized_mlp_chain_reference(x, wq, s_w, bs, **kw)
+        library = lambda: int_mm_chain(x, wq_cols, s_w, bs, g, pool, relu_last, acts)
+        err, ndiff = compare(case, kern(), plain())
+        lib_err, lib_diff = compare(case, library(), plain(), what="the _int_mm chain")
+        bound_ms, bound_by, ops, nbytes = int8_bound(m, n, dims, pool, acts)
+        row = {
+            "name": f"quantized_mlp_chain:{case}", "case": case, "shape": [m, n, dims],
+            "block_windows": g, "padded_windows": -m % g,
+            "route": "cuda", "source": "ampnet_tpu_torch/csrc/quantized_mlp.cu",
+            "replaces": "ampnet_tpu/ops/pallas/quantized_mlp.py:46",
+            "max_abs_err": err, "elements_differ": ndiff,
+            "library_max_abs_err": lib_err, "library_elements_differ": lib_diff,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops, "bytes": nbytes,
+        }
+        iters = 20 if m * n >= 1 << 16 else 100
+        # in turns, plain kernel kernel plain, within one card and one call
+        p1, k1, k2, p2 = (time_ms(f, iters) for f in (plain, kern, kern, plain))
+        l1, l2 = time_ms(library, iters), time_ms(library, iters)
+        row.update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+                    "cuda_launches_per_call": {
+                        name: sum(cuda_launches(fn).values())
+                        for name, fn in (("kernel", kern), ("plain", plain), ("library", library))}})
+        if case.startswith("serve:"):
+            _say(f"  int8 {case}: the kernel's device operations per call: "
+                 + json.dumps(cuda_launches(kern)))
+        _say(f"  int8 {case:22s} M={m:4d} N={n:5d} dims={dims} g={g} err={err:.3g} "
+             f"differ={ndiff} library_err={lib_err:.3g} kernel={row['ms']:.4f} ms "
+             f"plain={row['plain_ms']:.4f} ms library={row['library_ms']:.4f} ms "
+             f"bound={bound_ms:.4f} ms ({bound_by}) launches/call="
+             + json.dumps(row["cuda_launches_per_call"]))
+        rows.append(row)
+        del x
+    serve = [r for r in rows if r["case"].startswith("serve:")]
+    t_ops = sum(r["ops"] for r in serve) / INT8_PEAK_OPS * 1e3
+    t_bytes = sum(r["bytes"] for r in serve) / HBM_BYTES_PER_S * 1e3
+    total = {
+        "name": "quantized_mlp_chain", "case": "serve: mlp_a and mlp_b of one int8 forward, summed",
+        "route": "cuda", "source": "ampnet_tpu_torch/csrc/quantized_mlp.cu",
+        "replaces": "ampnet_tpu/ops/pallas/quantized_mlp.py:46",
+        "max_abs_err": max(r["max_abs_err"] for r in serve),
+        "ms": sum(r["ms"] for r in serve), "plain_ms": sum(r["plain_ms"] for r in serve),
+        "library_ms": sum(r["library_ms"] for r in serve),
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    return total, rows
+
+
 def model_phase(model, cfg, dev):
-    """Phase 4: fused against the module forward at [*MODEL_SHAPE, 9]."""
+    """Phase 4: fused and int8 against the module forward at
+    [*MODEL_SHAPE, 9], and int8 against itself on a CPU copy of the model."""
     from ampnet_tpu_torch.models.backends import make_forward
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -252,6 +414,25 @@ def model_phase(model, cfg, dev):
     if not (diff <= 5e-3 and agree > 0.999):
         raise RuntimeError("backend fused does not track the module forward")
 
+    int8 = make_forward(model, cfg, "int8", device=dev)(pts, cent, None)
+    cpu_model = copy.deepcopy(model)  # make_forward moves the copy to the CPU
+    int8_cpu = make_forward(cpu_model, cfg, "int8", device="cpu")(pts.cpu(), cent.cpu(), None)
+    torch.cuda.synchronize()
+    if int8.shape != want or int8_cpu.shape != want:
+        raise RuntimeError(f"int8 logits {tuple(int8.shape)} / {tuple(int8_cpu.shape)}, "
+                           f"want {want}")
+    if not (torch.isfinite(int8).all() and torch.isfinite(int8_cpu).all()):
+        raise RuntimeError("non-finite int8 logits")
+    agree_xla = (int8.argmax(-1) == xla.argmax(-1)).float().mean().item()
+    int8_cpu = int8_cpu.to(dev)
+    agree_cpu = (int8.argmax(-1) == int8_cpu.argmax(-1)).float().mean().item()
+    _say(f"  int8 vs xla: max_abs_diff={(int8 - xla).abs().max().item():.3g} "
+         f"argmax agreement={agree_xla:.6f} (> 0.97); int8 vs int8 on the CPU (plain "
+         f"chains): max_abs_diff={(int8 - int8_cpu).abs().max().item():.3g} "
+         f"argmax agreement={agree_cpu:.6f} (>= 0.999)")
+    if not (agree_xla > 0.97 and agree_cpu >= 0.999):
+        raise RuntimeError("backend int8 does not track the module forward or its CPU path")
+
 
 def _post(url, body: bytes, ctype: str, timeout: float = 600.0) -> bytes:
     req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype})
@@ -261,13 +442,27 @@ def _post(url, body: bytes, ctype: str, timeout: float = 600.0) -> bytes:
         return r.read()
 
 
-def serve_phase(model, cfg, device: str = "cuda"):
-    """Phase 5: the serve entry point answers concurrent clients. Returns
-    (launches counted while serving, bucket forwards dispatched)."""
+# kernel launches per bucket forward, by backend: fused runs all four encoder
+# chains through fused_mlp_chain; int8 runs mlp_a and mlp_b through
+# quantized_mlp_chain and the two T-Net trunks through fused_mlp_chain
+LAUNCHES_PER_FORWARD = {
+    "fused": {"fused_mlp_chain": 4, "quantized_mlp_chain": 0},
+    "int8": {"fused_mlp_chain": 2, "quantized_mlp_chain": 2},
+}
+
+
+def serve_phase(model, cfg, backend: str, device: str = "cuda"):
+    """Phase 5: the serve entry point answers concurrent clients with
+    ``backend``. Returns (launches of each kernel counted while serving,
+    bucket forwards dispatched). The fused run also traces a warm round and
+    prints the request breakdown."""
     from ampnet_tpu_torch.cli.main import build_parser, make_server
     from ampnet_tpu_torch.core.weights import flax_variables, save_reference_pth
     from ampnet_tpu_torch.ops import cuda_build
     from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
+
+    wrappers = {"fused_mlp_chain": fused_mlp_chain, "quantized_mlp_chain": quantized_mlp_chain}
 
     rng = np.random.default_rng(SEED)
     clouds = []
@@ -294,7 +489,7 @@ def serve_phase(model, cfg, device: str = "cuda"):
         save_reference_pth(flax_variables(model), ckpt,
                            meta={"number_of_points": cfg.data.n_points})
         args = build_parser().parse_args([
-            "serve", "--model_checkpoint", ckpt, "--backend", "fused",
+            "serve", "--model_checkpoint", ckpt, "--backend", backend,
             "--device", device, "--host", "127.0.0.1", "--port", "0",
         ])
         server = make_server(args)
@@ -352,30 +547,34 @@ def serve_phase(model, cfg, device: str = "cuda"):
                     raise RuntimeError(f"serving clients failed: {errors or 'timed out'}")
                 return served, time.perf_counter() - t0
 
-            fused_mlp_chain.launches = 0  # the main path's run starts here
+            for fn in wrappers.values():  # the main path's run starts here
+                fn.launches = 0
             served, wall = run_clients()
-            launches = fused_mlp_chain.launches  # ... and ends here
+            launches = {name: fn.launches for name, fn in wrappers.items()}  # ... and ends here
             inferencer.dispatch_many, inferencer.fetch_many = dispatch, fetch
             with urllib.request.urlopen(url + "/v1/stats", timeout=60) as r:
                 stats = json.loads(r.read())
-            _say(f"  served {len(plan)} requests ({sum(SERVE_CLOUD_POINTS)} points in "
-                 f"{len(clouds)} clouds) from 3 clients in {wall:.3f} s")
+            _say(f"  backend {backend}: served {len(plan)} requests ({sum(SERVE_CLOUD_POINTS)} "
+                 f"points in {len(clouds)} clouds) from 3 clients in {wall:.3f} s")
             _say("  stats: " + json.dumps(stats))
 
             # one forward per bucket of each dispatched micro-batch
             forwards = sum(len(h["pending"]) for *_, h in calls)
             _say("  micro-batches (clouds per bucket): "
                  + json.dumps([[len(idxs) for idxs, _ in h["pending"]] for *_, h in calls]))
-            if launches != 4 * forwards:
-                raise RuntimeError(f"fused_mlp_chain launched {launches} times while "
-                                   f"serving {forwards} bucket forwards; want {4 * forwards}")
+            for name, per in LAUNCHES_PER_FORWARD[backend].items():
+                if launches[name] != per * forwards:
+                    raise RuntimeError(f"{name} launched {launches[name]} times while serving "
+                                       f"{forwards} bucket forwards; want {per * forwards}")
             if not any(len(h["pending"]) > 1 for *_, h in calls):
                 raise RuntimeError("no micro-batch held two bucket shapes")
             check_served(inferencer, cfg, clouds, served, calls, fetched)
-            _say(f"  fused_mlp_chain launches while serving: {launches} "
-                 f"(= 4 x {forwards} bucket forwards)")
-            warm_round(run_clients, served)
-            _say("  breakdown: " + json.dumps(request_breakdown(inferencer, clouds[:4])))
+            _say("  launches while serving: " + ", ".join(
+                f"{name} {launches[name]} (= {per} x {forwards} bucket forwards)"
+                for name, per in LAUNCHES_PER_FORWARD[backend].items()))
+            if backend == "fused":
+                warm_round(run_clients, served)
+                _say("  breakdown: " + json.dumps(request_breakdown(inferencer, clouds[:4])))
         finally:
             inferencer.dispatch_many, inferencer.fetch_many = dispatch, fetch
             server.close()
@@ -439,12 +638,14 @@ def request_breakdown(inferencer, clouds) -> dict:
     """Where a warm served request's time goes, in ms: ``dispatch_many``
     must return without a host sync (CUDA sync debug mode raises on one), so
     its host time is the enqueue cost; the tiling and the forward of one
-    cloud are then timed alone, and a request of one cloud beside one of
-    ``len(clouds)`` clouds in one bucket: host enqueue beside device span
-    (CUDA events), and the kernels' summed device time from torch.profiler."""
+    cloud are then timed alone, the int8 forward of the same windows beside
+    the served one, and a request of one cloud beside one of ``len(clouds)``
+    clouds in one bucket: host enqueue beside device span (CUDA events), and
+    the kernels' summed device time from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from ampnet_tpu_torch.infer.tiled import KMEANS_FEATURE_IDX
+    from ampnet_tpu_torch.models.backends import make_forward
     from ampnet_tpu_torch.ops.kmeans import balanced_kmeans, num_tiles_test
 
     dev = inferencer.device
@@ -470,6 +671,7 @@ def request_breakdown(inferencer, clouds) -> dict:
     feats = torch.from_numpy(rows[:, list(KMEANS_FEATURE_IDX)]).to(dev)
     windows = torch.from_numpy(rows).to(dev).reshape(1, k, cap, -1)
     cent = windows[..., :2].mean(dim=2)
+    int8_forward = make_forward(inferencer.model, inferencer.cfg, "int8", device=dev)
     requests = {
         "request_x1": lambda: inferencer.predict_many([cloud], seeds=[0]),
         f"request_x{len(clouds)}": lambda: inferencer.predict_many(
@@ -480,6 +682,7 @@ def request_breakdown(inferencer, clouds) -> dict:
             feats, k, generator=torch.Generator(device=dev).manual_seed(0),
             capacities=(cap,) * k),
         "forward": lambda: inferencer._forward(windows, cent, None),
+        "forward_int8": lambda: int8_forward(windows, cent, None),
         **requests,
     }
     for name, fn in parts.items():
@@ -495,7 +698,10 @@ def request_breakdown(inferencer, clouds) -> dict:
         t2 = time.perf_counter()
         out[name] = {"host_enqueue_ms": (t1 - t0) * 1e3, "wall_ms": (t2 - t0) * 1e3,
                      "device_span_ms": start.elapsed_time(end)}
-    for name, fn in requests.items():
+    # the kernels' device time beside the span: a span that follows the host
+    # enqueue shows a launch-bound part
+    for name in (*requests, "forward", "forward_int8"):
+        fn = parts[name]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -510,6 +716,23 @@ def request_breakdown(inferencer, clouds) -> dict:
     return out
 
 
+def build_phase():
+    """Phase 2: each kernel source built by its own ``nvcc``, all started
+    together, and loaded."""
+    from ampnet_tpu_torch.ops import cuda_build
+
+    def build(name):
+        t0 = time.perf_counter()
+        cuda_build.load(name)
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
+        took = dict(zip(KERNEL_SOURCES, pool.map(build, KERNEL_SOURCES)))
+    _say("  built and loaded " + ", ".join(f"{n} in {t:.2f} s" for n, t in took.items())
+         + f" ({time.perf_counter() - t0:.2f} s in all, in parallel)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs a CUDA card",
@@ -517,7 +740,6 @@ def main() -> int:
         return 1
     from ampnet_tpu_torch.core.config import AMPNetConfig
     from ampnet_tpu_torch.core.device import resolve_device
-    from ampnet_tpu_torch.ops import cuda_build
 
     dev = resolve_device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -527,32 +749,39 @@ def main() -> int:
     _say(card_line())
 
     _say("[2/6] build")
-    t0 = time.perf_counter()
-    cuda_build.load("fused_mlp")
-    _say(f"  built and loaded fused_mlp in {time.perf_counter() - t0:.2f} s")
+    build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
     _say("[3/6] kernels against their plain versions")
-    rows = kernel_phase(model, dev)
+    fused_total, fused_cases = kernel_phase(model, dev)
+    int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/6] model: fused against the module forward")
+    _say("[4/6] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
     _say("[5/6] serve")
-    launches, forwards = serve_phase(model, cfg)
+    runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
     _say("[6/6] results")
-    total, cases = rows
-    # launches only where the serving run counted them: the whole kernel, and
-    # each serving chain once per bucket forward (its M there is 18 x clouds
-    # in the bucket); the other cases are shapes the main path did not run
-    total["launches"] = launches
-    for row in cases:
-        row["launches"] = forwards if row["case"].startswith("serve:") else None
-    _say(json.dumps({"kernels": [{**total, "cases": cases}]}))
+    # launches only where the serving runs counted them: each kernel in both
+    # runs, and each serving chain once per bucket forward that ran it (its M
+    # there is 18 x clouds in the bucket); the other cases are shapes the
+    # main path did not run
+    fwd = {backend: forwards for backend, (_, forwards) in runs.items()}
+    for total, name in ((fused_total, "fused_mlp_chain"), (int8_total, "quantized_mlp_chain")):
+        total["launches_by_run"] = {backend: counts[name] for backend, (counts, _) in runs.items()}
+        total["launches"] = sum(total["launches_by_run"].values())
+    tnets = ("serve:input_tnet", "serve:feature_tnet")  # the T-Nets run under both backends
+    for row in fused_cases:
+        row["launches"] = (fwd["fused"] + (fwd["int8"] if row["case"] in tnets else 0)
+                           if row["case"].startswith("serve:") else None)
+    for row in int8_cases:
+        row["launches"] = fwd["int8"] if row["case"].startswith("serve:") else None
+    _say(json.dumps({"kernels": [{**fused_total, "cases": fused_cases},
+                                 {**int8_total, "cases": int8_cases}]}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

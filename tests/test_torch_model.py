@@ -96,6 +96,25 @@ def test_fused_tracks_jax_xla(setup):
     assert (out.argmax(-1) == ref.argmax(-1)).mean() > 0.999
 
 
+def test_int8_matches_jax_int8(setup):
+    """int8 against the JAX int8 backend (its Pallas kernel in interpret
+    mode), given the same weights: the same quantization, so near-identical
+    logits."""
+    cfg, jm, v, model, (pts, cent, pad), _ = setup
+    jref = np.asarray(j_make_forward(jm, cfg, "int8", interpret=True)(v, pts, cent, pad))
+    out = make_forward(model, AMPNetConfig(), "int8", device="cpu")(*_t(pts, cent, pad))
+    assert out.dtype == torch.float32 and out.shape == jref.shape
+    np.testing.assert_allclose(out.numpy(), jref, atol=2e-2, rtol=0)
+    assert (out.numpy().argmax(-1) == jref.argmax(-1)).mean() >= 0.999
+
+
+def test_int8_prediction_agreement(setup):
+    """int8 against JAX xla, at tests/test_backends.py's limit."""
+    cfg, jm, v, model, (pts, cent, pad), ref = setup
+    out = make_forward(model, AMPNetConfig(), "int8", device="cpu")(*_t(pts, cent, pad))
+    assert (out.numpy().argmax(-1) == ref.argmax(-1)).mean() > 0.97
+
+
 def test_bf16_prediction_agreement(setup):
     cfg, jm, v, model, (pts, cent, pad), ref = setup
     out = make_forward(model, AMPNetConfig(), "bf16", device="cpu")(*_t(pts, cent, pad))
@@ -108,8 +127,8 @@ def test_backend_refusals():
     model = AMPNetSegmenter(ModelConfig())
     with pytest.raises(ValueError, match="unknown backend"):
         make_forward(model, AMPNetConfig(), "fp4", device="cpu")
-    with pytest.raises(NotImplementedError, match="quantized_mlp_chain"):
-        make_forward(model, AMPNetConfig(), "int8", device="cpu")
+    forward = make_forward(model, AMPNetConfig(), "int8", device="cpu")  # int8 builds on the CPU
+    assert forward(torch.zeros(1, 2, 8, 9), torch.zeros(1, 2, 2), None).shape == (1, 2, 8, 5)
     wcfg = AMPNetConfig(model=ModelConfig(bn_mode="window"))
     wmodel = AMPNetSegmenter(wcfg.model)
     for backend in ("folded", "bf16", "fused", "int8"):
@@ -117,9 +136,10 @@ def test_backend_refusals():
             make_forward(wmodel, wcfg, backend, device="cpu")
     make_forward(wmodel, wcfg, "xla", device="cpu")  # the module path stays available
     for field, value in (("local_agg", "edge"), ("att_geom_tokens", True)):
-        with pytest.raises(ValueError, match=field):
-            make_forward(model, AMPNetConfig(model=ModelConfig(**{field: value})), "fused",
-                         device="cpu")
+        for backend in ("fused", "int8"):
+            with pytest.raises(ValueError, match=field):
+                make_forward(model, AMPNetConfig(model=ModelConfig(**{field: value})), backend,
+                             device="cpu")
 
 
 def test_unported_model_options_raise():

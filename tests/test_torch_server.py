@@ -1,6 +1,7 @@
 """The port's HTTP server (backend ``fused``, plain chain on the CPU) against
 the JAX package on the same clouds and the same weights, with
-tests/test_server.py's request shapes.
+tests/test_server.py's request shapes; and ``serve --backend int8`` against
+the port's own ``predict_many``.
 
 Clouds below 2·n_points tile into one window, so both packages see identical
 inputs (the replicate padding is the same numpy draw); a cloud that tiles
@@ -21,8 +22,9 @@ from ampnet_tpu.core.config import DataConfig as JDataConfig
 from ampnet_tpu.core.config import ModelConfig as JModelConfig
 from ampnet_tpu.infer.tiled import TiledInferencer as JTiled
 from ampnet_tpu.models.amp import AMPNetSegmenter as JSegmenter
+from ampnet_tpu_torch.cli.main import build_parser, make_server
 from ampnet_tpu_torch.core.config import AMPNetConfig, DataConfig, ModelConfig
-from ampnet_tpu_torch.core.weights import load_flax_variables
+from ampnet_tpu_torch.core.weights import flax_variables, load_flax_variables, save_reference_pth
 from ampnet_tpu_torch.infer.server import InferenceServer
 from ampnet_tpu_torch.infer.tiled import TiledInferencer
 from ampnet_tpu_torch.models.amp import AMPNetSegmenter
@@ -185,3 +187,35 @@ def test_bad_requests_and_stats(pair):
         stats = json.loads(r.read())
     assert stats["requests"] >= 1 and stats["errors"] == 0
     assert stats["latency_s"]["p50"] is not None or stats["cold_requests"] >= 1
+
+
+def test_serve_int8_command_line_matches_predict_many(pair, tmp_path):
+    """``serve --backend int8 --device cpu`` answers a binary and a JSON
+    request with the labels of a direct int8 ``predict_many`` on the same
+    weights (restored from a reference .pth)."""
+    fused = pair[1].service.inferencer  # the port model and config of the fused server
+    ckpt = tmp_path / "model_attention.pth"
+    save_reference_pth(flax_variables(fused.model), str(ckpt), meta={"number_of_points": 64})
+    server = make_server(build_parser().parse_args([
+        "serve", "--model_checkpoint", str(ckpt), "--device", "cpu", "--port", "0",
+        "--backend", "int8", "--max_clusters", "3", "--batch_window_ms", "1",
+    ]))
+    t = threading.Thread(target=server.httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        with urllib.request.urlopen(_url(server, "/healthz"), timeout=30) as r:
+            assert json.loads(r.read())["backend"] == "int8"
+        rng = np.random.default_rng(8)
+        one = rng.normal(size=(150, 9)).astype(np.float32)
+        two = [rng.normal(size=(n, 9)).astype(np.float32) for n in (80, 260)]
+        binary = np.frombuffer(_post(server, one.tobytes(), BINARY)[2], np.int8)
+        payload = json.dumps({"clouds": [c.tolist() for c in two]}).encode()
+        labels = json.loads(_post(server, payload, JSON)[2])["labels"]
+    finally:
+        server.close()
+        t.join(timeout=30)
+    assert not t.is_alive()
+    direct = TiledInferencer(fused.model, fused.cfg, backend="int8", device="cpu")
+    np.testing.assert_array_equal(binary, direct.predict_many([one], seeds=[0])[0])
+    for got, want in zip(labels, direct.predict_many(two, seeds=[0, 0])):
+        np.testing.assert_array_equal(np.asarray(got), want)
