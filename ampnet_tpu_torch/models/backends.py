@@ -12,8 +12,11 @@ command lines carry over).
   CUDA kernel (models/fused_infer.py) + the folded attention/head;
 * ``'int8'``   — mlp_a and mlp_b through the ``quantized_mlp_chain`` int8
   CUDA kernel (models/quantized_infer.py), the T-Net trunks through
-  ``fused_mlp_chain``, + the folded attention/head in fp32. Its chains are
-  folded and quantized once, when ``make_forward`` is called.
+  ``fused_mlp_chain``, + the folded attention/head in fp32.
+
+``fused`` and ``int8`` fold BatchNorm into every chain and head once, when
+``make_forward`` is called, and prepare (``fused_mlp_chain``) or quantize
+(``quantized_mlp_chain``) the chains then too: a forward folds nothing.
 
 ``forward(points [B, W, N, F], centroids [B, W, 2], pad_mask)`` returns fp32
 per-point logits. Every non-'xla' backend folds the RUNNING BatchNorm
@@ -32,10 +35,15 @@ from typing import Callable
 import torch
 
 from ampnet_tpu_torch.core.device import resolve_device
-from ampnet_tpu_torch.models.folded_infer import attention_head_folded, encode_windows_folded
-from ampnet_tpu_torch.models.fused_infer import encode_windows_fused
+from ampnet_tpu_torch.models.folded_infer import (
+    attention_head_folded,
+    encode_windows_folded,
+    head_params,
+)
+from ampnet_tpu_torch.models.fused_infer import encode_windows_fused, prepare_encoder_chains
 from ampnet_tpu_torch.models.quantized_infer import (
     encode_windows_int8,
+    fold_encoder_tnets,
     quantize_encoder_chains,
 )
 
@@ -92,16 +100,19 @@ def make_forward(model, cfg, backend: str = "xla", device="cuda") -> Callable:
         return forward
 
     if backend == "int8":
-        chains = quantize_encoder_chains(model)
-        encode = lambda points: encode_windows_int8(model, points, chains)
+        chains, tnets = quantize_encoder_chains(model), fold_encoder_tnets(model)
+        encode = lambda points: encode_windows_int8(model, points, chains, tnets)
     else:
-        encode = lambda points: encode_windows_fused(model, points)
+        chains = prepare_encoder_chains(model)
+        encode = lambda points: encode_windows_fused(model, points, chains)
+    with torch.no_grad():
+        head = head_params(model)
 
     def forward(points, centroids, pad_mask):
         with torch.inference_mode():
             local, glob, _ = encode(points)
             # the same folded attention + head as the folded backend, fp32
             return attention_head_folded(model, local, glob, centroids, pad_mask,
-                                         num_heads=heads)
+                                         num_heads=heads, head=head)
 
     return forward

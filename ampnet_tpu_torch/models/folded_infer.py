@@ -10,7 +10,9 @@ window-token attention) stay fp32.
 
 The functions read the weights from the port's modules (``AMPNetSegmenter``
 or a bare ``WindowEncoder``) and fold them on every call, so a module whose
-weights change is never served stale folded copies.
+weights change is never served stale folded copies; the heads also take
+folded parameters computed once (``tnet_fc_params``, ``head_params``), as
+the ``fused`` and ``int8`` forwards of ``make_forward`` pass them.
 """
 
 from __future__ import annotations
@@ -49,12 +51,18 @@ def _chain(h: torch.Tensor, ws, bs, dtype) -> torch.Tensor:
     return h
 
 
-def tnet_head_folded(tnet: TNet, g: torch.Tensor) -> torch.Tensor:
+def tnet_fc_params(tnet: TNet):
+    """(W', b') per FC layer of a T-Net head, with BN folded (fp32)."""
+    return [_fold(getattr(tnet, f"fc_{i}"), getattr(tnet, f"fc_bn_{i}"))
+            for i in range(tnet.n_fc)]
+
+
+def tnet_head_folded(tnet: TNet, g: torch.Tensor, fc=None) -> torch.Tensor:
     """T-Net FC head over pooled trunk features (fp32), BN folded →
-    [M, D, D] transforms."""
+    [M, D, D] transforms. ``fc``: ``tnet_fc_params(tnet)``, folded here when
+    not given."""
     g = g.float()
-    for i in range(tnet.n_fc):
-        w, b = _fold(getattr(tnet, f"fc_{i}"), getattr(tnet, f"fc_bn_{i}"))
+    for w, b in fc or tnet_fc_params(tnet):
         g = torch.relu(g @ w + b)
     out = g @ tnet.fc_out.weight.t() + tnet.fc_out.bias
     d = tnet.output_dim
@@ -104,6 +112,12 @@ def encode_windows_folded(model, points: torch.Tensor, dtype: Optional[torch.dty
     return local, glob, t_feat
 
 
+def head_params(model):
+    """(W', b') of the segmentation head's two Dense + BN layers, BN folded."""
+    head = model.head
+    return [_fold(head.dense_1, head.bn_1), _fold(head.dense_2, head.bn_2)]
+
+
 def attention_head_folded(
     model,
     local: torch.Tensor,  # [B, W, N, L]
@@ -112,9 +126,11 @@ def attention_head_folded(
     pad_mask: Optional[torch.Tensor],
     num_heads: int = 8,
     dtype: Optional[torch.dtype] = None,
+    head=None,
 ) -> torch.Tensor:
     """AttentionContext + SegmentationHead (eval), BN folded, fp32 logits out.
-    The window-token attention runs fp32; the per-point head in ``dtype``."""
+    The window-token attention runs fp32; the per-point head in ``dtype``.
+    ``head``: ``head_params(model)``, folded here when not given."""
     dtype = dtype or torch.float32
     ctx_m = model.context
     tokens = glob.float()
@@ -127,12 +143,10 @@ def attention_head_folded(
                          mha.in_proj.weight.t(), mha.in_proj.bias,
                          mha.out_proj.weight.t(), mha.out_proj.bias)
 
-    head = model.head
     E = ctx.shape[-1]
     h = torch.cat([local.to(dtype),
                    ctx[:, :, None, :].expand(*local.shape[:3], E).to(dtype)], dim=-1)
-    for dense, bn in ((head.dense_1, head.bn_1), (head.dense_2, head.bn_2)):
-        w, b = _fold(dense, bn)
+    for w, b in head or head_params(model):
         h = torch.relu(h @ w.to(dtype) + b.to(dtype))
-    out = h @ head.dense_out.weight.t().to(dtype) + head.dense_out.bias.to(dtype)
+    out = h @ model.head.dense_out.weight.t().to(dtype) + model.head.dense_out.bias.to(dtype)
     return out.float()

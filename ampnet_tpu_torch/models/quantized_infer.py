@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from ampnet_tpu_torch.models.folded_infer import encoder_of, folded_chain_params
-from ampnet_tpu_torch.models.fused_infer import _tnet_apply
+from ampnet_tpu_torch.models.fused_infer import fold_tnet, tnet_apply
 from ampnet_tpu_torch.ops.quantized_mlp import quantize_chain, quantized_mlp_chain
 
 
@@ -38,13 +38,22 @@ def quantize_encoder_chains(model):
     return tuple(out)
 
 
-def encode_windows_int8(model, points: torch.Tensor, chains: Optional[tuple] = None):
+def fold_encoder_tnets(model):
+    """(input T-Net, feature T-Net) of ``model``'s encoder as ``FoldedTNet``:
+    the fp32 trunks prepared for ``fused_mlp_chain``, the FC heads folded."""
+    enc = encoder_of(model)
+    return fold_tnet(enc.input_tnet), fold_tnet(enc.feature_tnet)
+
+
+def encode_windows_int8(model, points: torch.Tensor, chains: Optional[tuple] = None,
+                        tnets: Optional[tuple] = None):
     """Inference-mode (local_feats, global_feats, t_feat) of the AMP encoder
     with int8 mlp_a and mlp_b. ``points``: [B, W, N, F] or [M, N, F], fp32;
-    ``chains``: ``quantize_encoder_chains(model)``, computed here when not
-    given."""
+    ``chains``: ``quantize_encoder_chains(model)`` and ``tnets``:
+    ``fold_encoder_tnets(model)``, each computed here when not given."""
     enc = encoder_of(model)
     mlp_a, mlp_b = chains or quantize_encoder_chains(model)
+    t_in_chain, t_feat_chain = tnets or fold_encoder_tnets(model)
     squeeze = points.dim() == 4
     if squeeze:
         b, w, n, f = points.shape
@@ -54,11 +63,11 @@ def encode_windows_int8(model, points: torch.Tensor, chains: Optional[tuple] = N
 
     coords = x[..., : enc.cfg.point_dim].contiguous()
     # T-Nets stay fp32 (their output multiplies the features)
-    t_in = _tnet_apply(enc.input_tnet, coords)
+    t_in = tnet_apply(enc.input_tnet, coords, t_in_chain)
     h = torch.cat([coords @ t_in, x], dim=-1)
     h = quantized_mlp_chain(h, *mlp_a)  # [M, N, 64]
 
-    t_feat = _tnet_apply(enc.feature_tnet, h)
+    t_feat = tnet_apply(enc.feature_tnet, h, t_feat_chain)
     local = h @ t_feat
     glob = quantized_mlp_chain(local, *mlp_b, pool=True, return_acts=False)
 

@@ -38,10 +38,11 @@ def nvcc_path() -> str:
                        "needed to build the port's kernels")
 
 
-def _build(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def build(src: Path) -> Path:
+    """The shared library built from the CUDA source ``src`` under ``BUILD``
+    (built unless a build of the same source and flags is there)."""
     digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    out = BUILD / f"lib{name}-{digest}.so"
+    out = BUILD / f"lib{src.stem}-{digest}.so"
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -62,7 +63,7 @@ def load(name: str) -> ctypes.CDLL:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(_build(name)))
+            lib = ctypes.CDLL(str(build(CSRC / f"{name}.cu")))
             with _lock:
                 _libs[name] = lib
         return _libs[name]

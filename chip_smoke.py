@@ -17,7 +17,13 @@ the run (non-zero exit, no result line) when it does not hold:
    or prime window counts, ``relu_last=False`` and, for the int8 chain, an
    explicit ``block_windows``), timed with CUDA events beside its bound, the
    plain version's time and a library yardstick; then, untimed, at ragged
-   shapes (``EDGE_CASES``);
+   shapes (``EDGE_CASES``). Each time is taken on two clocks
+   (``kernel_timing.py``): ``ms``, back-to-back calls as a caller makes them,
+   which include the wrapper's host time where that is the slower side, and
+   ``device_ms``, the same calls replayed from a CUDA graph. ``fused_mlp_chain``'s
+   bound takes its operations at the rate of its 3xTF32 design, with the
+   one-TF32-product bound (``tf32_bound_ms``) and the fp32 CUDA-core bound
+   (``fp32_bound_ms``) beside it;
 4. model  -- backend ``fused`` against the module forward (``xla``) at
    ``[2, 18, 4096, 9]``, from seeded random weights and BatchNorm statistics;
    backend ``int8`` against ``xla`` and against the same ``int8`` forward on a
@@ -52,13 +58,17 @@ import torch
 
 SEED = 0
 KERNEL_SOURCES = ("fused_mlp", "quantized_mlp")  # ampnet_tpu_torch/csrc/<name>.cu
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense int8 on
-# the tensor cores, and HBM3
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 and
+# int8 on the tensor cores, and HBM3
 FP32_PEAK_FLOPS = 67e12
+TF32_PEAK_FLOPS = 495e12
 INT8_PEAK_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
+# fused_mlp_chain issues three TF32 products per fp32 product (3xTF32)
+TF32_PRODUCTS = 3
 # fp32 rounding of sums of up to 256 products, taken in another order than
-# cuBLAS takes them: about K * 2^-24 relative, 1.5e-5 at K = 256. The int8
+# cuBLAS takes them: about K * 2^-24 relative, 1.5e-5 at K = 256; the 3xTF32
+# split of fused_mlp_chain adds about 2^-21 relative per product. The int8
 # chain's kernel and plain version round alike (exact int32 sums, no FMA), so
 # 0 elements are expected to differ there; the bound is the same.
 KERNEL_RTOL = 1e-4
@@ -83,29 +93,29 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
-    events), after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def roofline(flops, nbytes):
+    """The bounds of fp32 chain work, in ms: (bound_ms, bound_by,
+    tf32_bound_ms, fp32_bound_ms). bound_ms takes the operations at the
+    rate of the kernel's 3xTF32 design (three TF32 products per fp32 product
+    at 495 TFLOP/s); tf32_bound_ms at one TF32 product per fp32 product, the
+    least time of the function on the tensor cores at TF32; fp32_bound_ms at
+    the 67 TFLOP/s fp32 rate of the CUDA cores, the bound of the kernel's
+    earlier CUDA-core design. Bytes over 3.35 TB/s in all three."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = TF32_PRODUCTS * flops / TF32_PEAK_FLOPS * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            max(flops / TF32_PEAK_FLOPS * 1e3, t_bytes),
+            max(flops / FP32_PEAK_FLOPS * 1e3, t_bytes))
 
 
 def chain_bound(m, n, dims, pool, return_acts):
-    """(bound_ms, bound_by, flops, bytes) of one chain call: each input read
-    once, each output written once, fp32."""
+    """(bound_ms, bound_by, tf32_bound_ms, fp32_bound_ms, flops, bytes) of one chain call:
+    each input read once, each output written once, fp32 (``roofline``)."""
     flops = 2.0 * m * n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
     nbytes = 4.0 * (m * n * dims[0] + params
                     + (m * n * dims[-1] if return_acts else 0) + (m * dims[-1] if pool else 0))
-    t_ops, t_bytes = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    return (*roofline(flops, nbytes), flops, nbytes)
 
 
 def seeded_model(cfg):
@@ -208,11 +218,24 @@ def edge_phase(dev):
              f"int8 err={q_err:.3g}, {q_diff} elements differ")
 
 
+# the peak bound_ms of a fused_mlp_chain row is taken at, when operations bound it
+TF32_BOUND_PEAK = "3 TF32 products per fp32 product at 495 TFLOP/s (dense TF32)"
+
+
 def kernel_phase(model, dev):
     """Phase 3: fused_mlp_chain against its plain version → (the per-forward
-    row, the four serving chains summed; one row per case)."""
+    row, the four serving chains summed; one row per case). The kernel is
+    held against the plain version from plain weights (the wrapper prepares
+    them) and timed on a chain prepared once, as the forward runs it, on
+    both clocks (``kernel_timing.py``)."""
+    from kernel_timing import device_ms, host_ms
+
     from ampnet_tpu_torch.models.folded_infer import folded_chain_params
-    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain, fused_mlp_chain_reference
+    from ampnet_tpu_torch.ops.fused_mlp import (
+        fused_mlp_chain,
+        fused_mlp_chain_reference,
+        prepare_chain,
+    )
 
     enc = model.encoder
     chains = {
@@ -236,30 +259,41 @@ def kernel_phase(model, dev):
         x = torch.randn(m, n, dims[0], generator=gen, device=dev)
         kw = dict(pool=pool, return_acts=acts, relu_last=relu_last)
         err = kernel_err(case, x, ws, bs, kw)
+        prepared = prepare_chain(ws, bs)
+        err = max(err, compare(case, fused_mlp_chain(x, prepared, **kw),
+                               fused_mlp_chain_reference(x, ws, bs, **kw))[0])
         iters = 20 if m * n >= 1 << 16 else 100
-        kern = lambda: fused_mlp_chain(x, ws, bs, **kw)
+        kern = lambda: fused_mlp_chain(x, prepared, **kw)
         plain = lambda: fused_mlp_chain_reference(x, ws, bs, **kw)
         # in turns, plain kernel kernel plain, within one card and one call
-        p1, k1, k2, p2 = (time_ms(f, iters) for f in (plain, kern, kern, plain))
-        bound_ms, bound_by, flops, nbytes = chain_bound(m, n, dims, pool, acts)
+        p1, k1, k2, p2 = (host_ms(f, iters) for f in (plain, kern, kern, plain))
+        dp1, dk1, dk2, dp2 = (device_ms(f, iters) for f in (plain, kern, kern, plain))
+        bound_ms, bound_by, tf32_bound_ms, fp32_bound_ms, flops, nbytes = chain_bound(
+            m, n, dims, pool, acts)
         row = {
             "name": f"fused_mlp_chain:{case}", "case": case, "shape": [m, n, dims],
             "route": "cuda", "source": "ampnet_tpu_torch/csrc/fused_mlp.cu",
             "replaces": "ampnet_tpu/ops/pallas/fused_mlp.py:69",
             "max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            # the plain version IS the cuBLAS layer chain PyTorch offers for it
+            # the plain version IS the cuBLAS fp32 layer chain (TF32 off)
             "library_ms": (p1 + p2) / 2,
+            "device_ms": (dk1 + dk2) / 2, "plain_device_ms": (dp1 + dp2) / 2,
+            "library_device_ms": (dp1 + dp2) / 2,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_peak": TF32_BOUND_PEAK if bound_by == "operations" else "3.35 TB/s (HBM3)",
+            "tf32_bound_ms": tf32_bound_ms, "fp32_bound_ms": fp32_bound_ms,
             "flops": flops, "bytes": nbytes,
         }
         _say(f"  {case:24s} M={m:4d} N={n:5d} dims={dims} err={err:.3g} "
-             f"kernel={row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms "
-             f"bound={bound_ms:.4f} ms ({bound_by})")
+             f"kernel={row['ms']:.4f} ms (device {row['device_ms']:.4f}) "
+             f"plain={row['plain_ms']:.4f} ms (device {row['plain_device_ms']:.4f}) "
+             f"bound={bound_ms:.4f} ms ({bound_by}) 1xTF32 bound={tf32_bound_ms:.4f} ms "
+             f"fp32 bound={fp32_bound_ms:.4f} ms")
         rows.append(row)
         del x
     serve = [r for r in rows if r["case"].startswith("serve:")]
-    t_ops = sum(r["flops"] for r in serve) / FP32_PEAK_FLOPS * 1e3
-    t_bytes = sum(r["bytes"] for r in serve) / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by, tf32_bound_ms, fp32_bound_ms = roofline(
+        sum(r["flops"] for r in serve), sum(r["bytes"] for r in serve))
     total = {
         "name": "fused_mlp_chain", "case": "serve: the four chains of one forward, summed",
         "route": "cuda", "source": "ampnet_tpu_torch/csrc/fused_mlp.cu",
@@ -267,8 +301,16 @@ def kernel_phase(model, dev):
         "max_abs_err": max(r["max_abs_err"] for r in serve),
         "ms": sum(r["ms"] for r in serve), "plain_ms": sum(r["plain_ms"] for r in serve),
         "library_ms": sum(r["library_ms"] for r in serve),
-        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        **{k: sum(r[k] for r in serve)
+           for k in ("device_ms", "plain_device_ms", "library_device_ms")},
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_peak": TF32_BOUND_PEAK if bound_by == "operations" else "3.35 TB/s (HBM3)",
+        "tf32_bound_ms": tf32_bound_ms, "fp32_bound_ms": fp32_bound_ms,
     }
+    _say(f"  serve, four chains summed: kernel={total['ms']:.4f} ms "
+         f"(device {total['device_ms']:.4f}) library={total['library_ms']:.4f} ms "
+         f"(device {total['library_device_ms']:.4f}) bound={bound_ms:.4f} ms ({bound_by}) "
+         f"1xTF32 bound={tf32_bound_ms:.4f} ms fp32 bound={fp32_bound_ms:.4f} ms")
     return total, rows
 
 
@@ -315,6 +357,8 @@ def quantized_phase(model, dev):
     """Phase 3c: quantized_mlp_chain against its plain version, with the
     seeded model's folded and quantized mlp_a and mlp_b → (the per-forward
     row, the two serving chains summed; one row per case)."""
+    from kernel_timing import device_ms, host_ms
+
     from ampnet_tpu_torch.models.quantized_infer import quantize_encoder_chains
     from ampnet_tpu_torch.ops.quantized_mlp import (
         block_windows_for,
@@ -359,9 +403,13 @@ def quantized_phase(model, dev):
         }
         iters = 20 if m * n >= 1 << 16 else 100
         # in turns, plain kernel kernel plain, within one card and one call
-        p1, k1, k2, p2 = (time_ms(f, iters) for f in (plain, kern, kern, plain))
-        l1, l2 = time_ms(library, iters), time_ms(library, iters)
+        p1, k1, k2, p2 = (host_ms(f, iters) for f in (plain, kern, kern, plain))
+        l1, l2 = host_ms(library, iters), host_ms(library, iters)
+        dp1, dk1, dk2, dp2 = (device_ms(f, iters) for f in (plain, kern, kern, plain))
+        dl1, dl2 = device_ms(library, iters), device_ms(library, iters)
         row.update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+                    "device_ms": (dk1 + dk2) / 2, "plain_device_ms": (dp1 + dp2) / 2,
+                    "library_device_ms": (dl1 + dl2) / 2,
                     "cuda_launches_per_call": {
                         name: sum(cuda_launches(fn).values())
                         for name, fn in (("kernel", kern), ("plain", plain), ("library", library))}})
@@ -370,7 +418,9 @@ def quantized_phase(model, dev):
                  + json.dumps(cuda_launches(kern)))
         _say(f"  int8 {case:22s} M={m:4d} N={n:5d} dims={dims} g={g} err={err:.3g} "
              f"differ={ndiff} library_err={lib_err:.3g} kernel={row['ms']:.4f} ms "
-             f"plain={row['plain_ms']:.4f} ms library={row['library_ms']:.4f} ms "
+             f"(device {row['device_ms']:.4f}) plain={row['plain_ms']:.4f} ms "
+             f"(device {row['plain_device_ms']:.4f}) library={row['library_ms']:.4f} ms "
+             f"(device {row['library_device_ms']:.4f}) "
              f"bound={bound_ms:.4f} ms ({bound_by}) launches/call="
              + json.dumps(row["cuda_launches_per_call"]))
         rows.append(row)
@@ -385,6 +435,8 @@ def quantized_phase(model, dev):
         "max_abs_err": max(r["max_abs_err"] for r in serve),
         "ms": sum(r["ms"] for r in serve), "plain_ms": sum(r["plain_ms"] for r in serve),
         "library_ms": sum(r["library_ms"] for r in serve),
+        **{k: sum(r[k] for r in serve)
+           for k in ("device_ms", "plain_device_ms", "library_device_ms")},
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     return total, rows
@@ -702,10 +754,13 @@ def request_breakdown(inferencer, clouds) -> dict:
     # enqueue shows a launch-bound part
     for name in (*requests, "forward", "forward_int8"):
         fn = parts[name]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        for _ in range(3):  # a trace of a short call sometimes comes back without device events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            if kernels:
+                break
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         out[name]["kernel_launches"] = sum(e.count for e in kernels)
         out[name]["device_busy_ms"] = busy if busy > 0 else "not measured"

@@ -50,7 +50,7 @@ IMPORT_RE = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax|ampnet
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py", "kernel_timing.py"])
 def test_no_file_imports_jax_or_the_jax_package(path):
     assert not IMPORT_RE.findall((REPO / path).read_text()), path
 
