@@ -21,20 +21,28 @@ import torch
 
 from ampnet_tpu_torch.models.folded_infer import encoder_of, folded_chain_params
 from ampnet_tpu_torch.models.fused_infer import fold_tnet, tnet_apply
-from ampnet_tpu_torch.ops.quantized_mlp import quantize_chain, quantized_mlp_chain
+from ampnet_tpu_torch.ops.quantized_mlp import (
+    prepare_quantized_chain,
+    quantize_chain,
+    quantized_mlp_chain,
+)
 
 
 def quantize_encoder_chains(model):
-    """(mlp_a, mlp_b) of ``model``'s encoder, each as (int8 weights, weight
-    scales, fp32 biases) per layer: BatchNorm folded from the running
-    statistics, then quantized per output channel. An eval-mode model gives
-    the same numbers every time, so a caller may compute them once."""
+    """(mlp_a, mlp_b) of ``model``'s encoder, each as the weight arguments
+    ``quantized_mlp_chain`` takes after x: BatchNorm folded from the running
+    statistics, then quantized per output channel; on the card laid out for
+    the kernel, ``(PreparedQuantizedChain,)``, on the CPU the plain (int8
+    weights, weight scales, fp32 biases). An eval-mode model gives the same
+    numbers every time, so a caller may compute them once."""
     enc = encoder_of(model)
     out = []
     with torch.no_grad():
         for mlp in (enc.mlp_a, enc.mlp_b):
             ws, bs = folded_chain_params(mlp)
-            out.append((*quantize_chain(ws), bs))
+            wq, w_scale = quantize_chain(ws)
+            out.append((prepare_quantized_chain(wq, w_scale, bs),) if wq[0].is_cuda
+                       else (wq, w_scale, bs))
     return tuple(out)
 
 

@@ -20,6 +20,14 @@ when that is 0, and M is padded up to a multiple of g with zero windows. From
 the first layer on those windows hold ``relu(b)`` and count toward their
 block's scale, so the padding is part of the result.
 
+``prepare_quantized_chain`` lays a chain out for the kernel once: int8
+weights K-major, zero-padded, in the kernel's shared-memory order, scales and
+biases padded to the same widths, and the C arguments built. The padding is
+decided there only. On a CUDA tensor ``quantized_mlp_chain`` takes such a
+prepared chain, the one way into the kernel; the int8 forward prepares its
+chains once per ``make_forward``. On a CPU tensor it also takes the plain
+int8 weights.
+
 ``quantized_mlp_chain`` chooses by the tensor's device: a CPU tensor takes
 the plain version (``quantized_mlp_chain_reference``), a CUDA tensor launches
 the kernel or raises — there is no fallback. ``quantized_mlp_chain.launches``
@@ -34,13 +42,16 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from ampnet_tpu_torch.ops import cuda_build
 
 MAX_LAYERS = 4
+MAX_WIDTH = 256
+K_STEP = 32  # int8 values of one wgmma k-step
 QMAX = 127.0
 # an fp32 matmul of integer-valued operands is exact in any summation order
 # while every partial sum stays below 2**24
@@ -125,18 +136,56 @@ def quantized_mlp_chain_reference(x, wq, w_scale, biases, pool=False, relu_last=
     return h
 
 
-def _check(x, wq, w_scale, biases, pool, return_acts, block_windows):
-    if not (pool or return_acts):
-        raise ValueError("quantized_mlp_chain needs pool or return_acts")
-    if x.dim() != 3:
-        raise ValueError(f"x must be [M, N, Cin], got shape {tuple(x.shape)}")
+def pad_depth(c: int) -> int:
+    """The first layer's Cin padded to whole ``wgmma`` k-steps of 32 int8
+    values; later layers take the padded width before them."""
+    return -(-c // K_STEP) * K_STEP
+
+
+def pad_width(c: int) -> int:
+    """A layer's Cout padded to the kernel's ``wgmma`` N (64, 128 or 256)."""
+    return 64 if c <= 64 else 128 if c <= 128 else 256
+
+
+def pack_weight_s8(q: torch.Tensor, kpad: int, npad: int) -> torch.Tensor:
+    """One layer's int8 ``[Cin, Cout]`` weight in the kernel's shared-memory
+    order, ``[npad/8, kpad/16, 8, 16]``: K-major, zero-padded, the 8-row ×
+    16-byte core matrix (n // 8, k // 16) holding rows n % 8 of bytes k % 16
+    (``wgmma``'s no-swizzle K-major layout)."""
+    wt = torch.zeros(npad, kpad, dtype=torch.int8, device=q.device)
+    wt[: q.shape[1], : q.shape[0]] = q.t()
+    return wt.reshape(npad // 8, 8, kpad // 16, 16).permute(0, 2, 1, 3).contiguous()
+
+
+def unpack_weight_s8(packed: torch.Tensor) -> torch.Tensor:
+    """The K-major ``[npad, kpad]`` int8 weight back from ``pack_weight_s8``."""
+    ng, kg, _, _ = packed.shape
+    return packed.permute(0, 2, 1, 3).reshape(ng * 8, kg * 16)
+
+
+@dataclass(frozen=True)
+class PreparedQuantizedChain:
+    """An int8 chain laid out for the kernel once (``prepare_quantized_chain``),
+    with the int8 weights, scales and biases kept for the plain version."""
+
+    wq: Tuple[torch.Tensor, ...]  # int8 [Cin_i, Cout_i]
+    w_scale: Tuple[torch.Tensor, ...]  # fp32 [Cout_i]
+    biases: Tuple[torch.Tensor, ...]  # fp32 [Cout_i]
+    packed: Tuple[torch.Tensor, ...]  # pack_weight_s8 per layer
+    scale_pad: Tuple[torch.Tensor, ...]  # [pad_width(Cout_i)], zero past Cout_i
+    bias_pad: Tuple[torch.Tensor, ...]
+    # the kernel's per-layer arguments as C arrays (weight, scale and bias
+    # pointers, Cout, padded depth and width), built once: the call's host
+    # time counts
+    c_args: tuple = field(compare=False, repr=False)
+
+
+def _check_chain(wq, w_scale, biases):
     if (not 1 <= len(wq) <= MAX_LAYERS or len(w_scale) != len(wq)
             or len(biases) != len(wq)):
         raise ValueError(f"need 1..{MAX_LAYERS} layers with one scale and one bias each, "
                          f"got {len(wq)} weights, {len(w_scale)} scales, {len(biases)} biases")
-    if block_windows < 0:
-        raise ValueError(f"block_windows must be >= 0, got {block_windows}")
-    cin = x.shape[2]
+    cin = wq[0].shape[0] if wq[0].dim() == 2 else None
     for i, (q, s, b) in enumerate(zip(wq, w_scale, biases)):
         if q.dim() != 2 or q.shape[0] != cin or s.shape != (q.shape[1],) \
                 or b.shape != (q.shape[1],):
@@ -145,88 +194,114 @@ def _check(x, wq, w_scale, biases, pool, return_acts, block_windows):
         if q.dtype != torch.int8:
             raise TypeError(f"layer {i}: quantized weights must be int8, got {q.dtype}")
         cin = q.shape[1]
-    for t in (x, *wq, *w_scale, *biases):
-        if t.device != x.device:
+    for t in (*wq, *w_scale, *biases):
+        if t.device != wq[0].device:
             raise ValueError("x, weights, scales and biases must share one device")
-    for t in (x, *w_scale, *biases):
+    for t in (*w_scale, *biases):
         if t.dtype != torch.float32:
             raise TypeError(f"quantized_mlp_chain takes float32 x, scales and biases, "
                             f"got {t.dtype}")
 
 
-def _lib() -> ctypes.CDLL:
-    """The built kernel library, with every C signature declared."""
-    lib = cuda_build.load("quantized_mlp")
+def prepare_quantized_chain(wq: Sequence[torch.Tensor], w_scale: Sequence[torch.Tensor],
+                            biases: Sequence[torch.Tensor]) -> PreparedQuantizedChain:
+    """Lay out an int8 chain for the kernel: each layer's weights K-major,
+    zero-padded (Cin of the first layer to ``pad_depth``, every Cout to
+    ``pad_width``) in core-matrix order, scales and biases zero-padded to
+    the same width. The padding is decided here only: the kernel reads it
+    from the arguments and checks it. Call it once per set of weights."""
+    _check_chain(wq, w_scale, biases)
+    widest = max(wq[0].shape[0], *(q.shape[1] for q in wq))
+    if widest > MAX_WIDTH:
+        raise ValueError(f"quantized_mlp_chain kernel takes widths up to {MAX_WIDTH}, "
+                         f"got {widest}")
+    pad = lambda t, n: torch.nn.functional.pad(t, (0, n - t.shape[0])).contiguous()
+    with torch.no_grad():
+        packed, scale_pad, bias_pad = [], [], []
+        kpad = pad_depth(wq[0].shape[0])
+        for q, s, b in zip(wq, w_scale, biases):
+            npad = pad_width(q.shape[1])
+            packed.append(pack_weight_s8(q, kpad, npad))
+            scale_pad.append(pad(s, npad))
+            bias_pad.append(pad(b, npad))
+            kpad = npad
+    layers = len(packed)
+    ptrs = lambda ts: (ctypes.c_void_p * layers)(*[t.data_ptr() for t in ts])
+    ints = lambda vs: (ctypes.c_int * layers)(*vs)
+    # the padding chosen here, read back from each packed layer's shape
+    c_args = (ptrs(packed), ptrs(scale_pad), ptrs(bias_pad), ints([q.shape[1] for q in wq]),
+              ints([p.shape[1] * 16 for p in packed]), ints([p.shape[0] * 8 for p in packed]))
+    return PreparedQuantizedChain(tuple(wq), tuple(w_scale), tuple(biases), tuple(packed),
+                                  tuple(scale_pad), tuple(bias_pad), c_args)
+
+
+def _check(x, wq, pool, return_acts, block_windows):
+    if not (pool or return_acts):
+        raise ValueError("quantized_mlp_chain needs pool or return_acts")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [M, N, Cin], got shape {tuple(x.shape)}")
+    if block_windows < 0:
+        raise ValueError(f"block_windows must be >= 0, got {block_windows}")
+    if x.shape[2] != wq[0].shape[0]:
+        raise ValueError(f"x has {x.shape[2]} channels; the chain takes {wq[0].shape[0]}")
+    if wq[0].device != x.device:
+        raise ValueError("x, weights, scales and biases must share one device")
+    if x.dtype != torch.float32:
+        raise TypeError(f"quantized_mlp_chain takes float32 x, scales and biases, got {x.dtype}")
+
+
+def _declared(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/quantized_mlp.cu``) with every C signature declared."""
     if lib.quantized_mlp_chain_s8.argtypes is None:  # declared last, below
-        for fn in (lib.quantized_mlp_chain_tile_rows, lib.quantized_mlp_chain_max_width):
-            fn.restype, fn.argtypes = ctypes.c_int, []
+        lib.quantized_mlp_chain_tile_rows.restype = ctypes.c_int
+        lib.quantized_mlp_chain_tile_rows.argtypes = []
         lib.quantized_mlp_chain_s8.restype = ctypes.c_int
         lib.quantized_mlp_chain_s8.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int]
-            + [ctypes.c_void_p] * (3 * MAX_LAYERS) + [ctypes.c_int] * (MAX_LAYERS + 1)
-            + [ctypes.c_void_p] * 7)
+            [ctypes.c_void_p] + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_void_p)] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+            + [ctypes.c_int] + [ctypes.c_void_p] * 5)
     return lib
 
 
-def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """``t``, or a copy of it when its data does not start on ``nbytes``."""
-    return t if t.data_ptr() % nbytes == 0 else t.clone()
-
-
-def _launch(x, wq, w_scale, biases, pool, relu_last, return_acts, g):
-    lib = _lib()
-    width = lib.quantized_mlp_chain_max_width()
-    if max(x.shape[2], *(q.shape[1] for q in wq)) > width:
-        raise ValueError(f"quantized_mlp_chain kernel takes widths up to {width}")
+def _launch(x, chain: PreparedQuantizedChain, pool, relu_last, return_acts, g, lib=None):
+    """One launch of the kernel (``lib``: another build of
+    ``csrc/quantized_mlp.cu``'s C interface in place of the package's own,
+    as ``kernel_timing.py --variants`` times them) → (acts, pooled)."""
+    lib = _declared(lib or cuda_build.load("quantized_mlp"))
     m, n, cin = x.shape
-    pad = -m % g
-    x = _aligned(x.contiguous(), 16)  # float4 loads
-    if pad:  # zero windows: they count toward their block's scale
-        x = torch.cat([x, x.new_zeros((pad, n, cin))], dim=0)
-    mp = m + pad
-    wq = [_aligned(q.contiguous(), 4) for q in wq]  # 4-byte loads
-    w_scale = [s.contiguous() for s in w_scale]
-    biases = [b.contiguous() for b in biases]
-    couts = [q.shape[1] for q in wq]
-    cout = couts[-1]
+    mp = m + (-m % g)  # the zero windows past m count toward their block's scale
+    x = x.contiguous()
+    cout = chain.wq[-1].shape[1]
+    layers = len(chain.packed)
     f32 = dict(dtype=torch.float32, device=x.device)
-    acts = torch.empty((mp, n, cout), **f32) if return_acts else None
-    pooled = partial = None
-    if pool:
-        tiles = -(-n // lib.quantized_mlp_chain_tile_rows())
-        pooled = torch.empty((mp, cout), **f32)
-        partial = torch.empty((mp, tiles, cout), **f32)
-    # fp32 activations between layers, and one absmax word per block and layer
-    hidden = max(couts[:-1], default=0)
-    scratch = torch.empty((2, mp * n * hidden), **f32) if hidden else None
-    amax = torch.empty((len(wq), mp // g), dtype=torch.int32, device=x.device)
-    nil = MAX_LAYERS - len(wq)
+    acts = torch.empty((m, n, cout), **f32) if return_acts else None
+    pooled = torch.empty((m, cout), **f32) if pool else None
+    rows = lib.quantized_mlp_chain_tile_rows()
+    # x quantized once with its block's scale, as the kernel's tile images
+    xq = (torch.empty(mp * -(-n // rows) * rows * chain.packed[0].shape[1] * 16,
+                      dtype=torch.int8, device=x.device) if layers > 1 else None)
+    # absmax words per layer and block; when pooling, tiles done and the
+    # pooled maxima as order keys per window
+    scratch = torch.empty(layers * (mp // g) + (m * (cout + 1) if pool else 0),
+                          dtype=torch.int32, device=x.device)
     ptr = lambda t: t.data_ptr() if t is not None else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.quantized_mlp_chain_s8(
-            x.data_ptr(), mp, n, cin, g, len(wq),
-            *[q.data_ptr() for q in wq], *[None] * nil,
-            *[s.data_ptr() for s in w_scale], *[None] * nil,
-            *[b.data_ptr() for b in biases], *[None] * nil,
-            *couts, *[0] * nil, int(relu_last),
-            ptr(acts), ptr(pooled), ptr(partial),
-            ptr(scratch), ptr(scratch[1]) if scratch is not None else None,
-            amax.data_ptr(), stream)
+            x.data_ptr(), m, mp, n, cin, g, layers, *chain.c_args, int(relu_last),
+            ptr(acts), ptr(pooled), ptr(xq), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"quantized_mlp_chain kernel launch failed: CUDA error {err}")
     with _count_lock:
         quantized_mlp_chain.launches += 1
-    return (acts[:m] if acts is not None else None,
-            pooled[:m] if pooled is not None else None)
+    return acts, pooled
 
 
 def quantized_mlp_chain(
     x: torch.Tensor,  # [M, N, Cin] fp32 — M windows of N points
-    wq: Sequence[torch.Tensor],  # int8 [Cin_i, Cout_i]
-    w_scale: Sequence[torch.Tensor],  # fp32 [Cout_i]
-    biases: Sequence[torch.Tensor],  # fp32 [Cout_i]
+    wq: Union[PreparedQuantizedChain, Sequence[torch.Tensor]],  # int8 [Cin_i, Cout_i]
+    w_scale: Optional[Sequence[torch.Tensor]] = None,  # fp32 [Cout_i]; None when prepared
+    biases: Optional[Sequence[torch.Tensor]] = None,  # fp32 [Cout_i]; None when prepared
     pool: bool = False,
     relu_last: bool = True,
     return_acts: bool = True,
@@ -234,9 +309,18 @@ def quantized_mlp_chain(
 ):
     """int8 version of ``fused_mlp_chain``: activations [M, N, Cout_last]
     (``return_acts``) and/or the per-window max [M, Cout_last] (``pool``).
-    Up to 4 layers, widths up to 256; ``block_windows`` = 0 picks g as the
-    JAX package does."""
-    _check(x, wq, w_scale, biases, pool, return_acts, block_windows)
+    ``wq`` is a ``prepare_quantized_chain`` result (``w_scale`` and
+    ``biases`` then None) or, on a CPU tensor only, the int8 weights. Up to
+    4 layers, widths up to 256; ``block_windows`` = 0 picks g as the JAX
+    package does."""
+    chain = None
+    if isinstance(wq, PreparedQuantizedChain):
+        if w_scale is not None or biases is not None:
+            raise ValueError("a PreparedQuantizedChain carries its own scales and biases")
+        chain, wq, w_scale, biases = wq, wq.wq, wq.w_scale, wq.biases
+    else:
+        _check_chain(wq, w_scale, biases)
+    _check(x, wq, pool, return_acts, block_windows)
     if x.device.type == "cpu":
         return quantized_mlp_chain_reference(x, wq, w_scale, biases, pool, relu_last,
                                              return_acts, block_windows)
@@ -245,8 +329,11 @@ def quantized_mlp_chain(
     m, n, _ = x.shape
     if n == 0 or m == 0:
         raise ValueError("quantized_mlp_chain needs at least one window of one point")
+    if chain is None:
+        raise ValueError("on a CUDA tensor quantized_mlp_chain takes a PreparedQuantizedChain: "
+                         "call prepare_quantized_chain once per set of weights")
     g = block_windows_for(m, n, max(q.shape[1] for q in wq), block_windows)
-    acts, pooled = _launch(x, wq, w_scale, biases, pool, relu_last, return_acts, g)
+    acts, pooled = _launch(x, chain, pool, relu_last, return_acts, g)
     if pool and return_acts:
         return acts, pooled
     return pooled if pool else acts

@@ -17,7 +17,12 @@ the run (non-zero exit, no result line) when it does not hold:
    or prime window counts, ``relu_last=False`` and, for the int8 chain, an
    explicit ``block_windows``), timed with CUDA events beside its bound, the
    plain version's time and a library yardstick; then, untimed, at ragged
-   shapes (``EDGE_CASES``). Each time is taken on two clocks
+   shapes (``EDGE_CASES``; for the int8 chain also ``INT8_EDGE_CASES``:
+   explicit ``block_windows``, a last block whose length is not a multiple
+   of 4, and x as a view into its storage at an offset). The int8 kernel
+   must agree with its plain version in every element; its printed rows add
+   the bound of its own plan (``design bound``: the recomputed layers and
+   the int8 x_q traffic). Each time is taken on two clocks
    (``kernel_timing.py``): ``ms``, back-to-back calls as a caller makes them,
    which include the wrapper's host time where that is the slower side, and
    ``device_ms``, the same calls replayed from a CUDA graph. ``fused_mlp_chain``'s
@@ -190,32 +195,61 @@ EDGE_CASES = [
     (2, 200, (256, 256, 256, 256, 256), True, True, True),  # four layers, widest
     (4, 64, (128, 1), True, True, False),  # one output channel
 ]
+# the int8 chain alone, with x's largest |value| in its last element: (M, N,
+# widths, block_windows, offset of x in its storage in floats, pool,
+# return_acts). Each block's absmax reads 16 bytes at a time where the
+# block's start allows and the rest one float at a time.
+INT8_EDGE_CASES = [
+    (5, 33, (6, 64, 64), 2, 0, True, True),  # the last block: 198 floats, not 4k
+    (4, 33, (6, 64, 64), 2, 198, True, True),  # x_big[1:]: 8 bytes past 16
+    (4, 33, (12, 64, 64), 2, 2, False, True),  # 2 floats in: no 16-byte row loads
+]
 
 
 def edge_phase(dev):
     """Phase 3b: both kernels against their plain versions at EDGE_CASES,
-    with seeded random weights (variance 1/fan_in), quantized per channel
-    for the int8 chain."""
+    and the int8 chain at INT8_EDGE_CASES, with seeded random weights
+    (variance 1/fan_in), quantized per channel for the int8 chain."""
     from ampnet_tpu_torch.ops.quantized_mlp import (
+        prepare_quantized_chain,
         quantize_chain,
         quantized_mlp_chain,
         quantized_mlp_chain_reference,
     )
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    for m, n, dims, pool, acts, relu_last in EDGE_CASES:
+
+    def chain(dims):
         ws = [torch.randn(a, b, generator=gen, device=dev) / a ** 0.5
               for a, b in zip(dims[:-1], dims[1:])]
-        bs = [0.1 * torch.randn(b, generator=gen, device=dev) for b in dims[1:]]
+        return ws, [0.1 * torch.randn(b, generator=gen, device=dev) for b in dims[1:]]
+
+    def int8_check(case, x, ws, bs, kw):
+        qs, ss = quantize_chain(ws)
+        err, ndiff = compare(case, quantized_mlp_chain(x, prepare_quantized_chain(qs, ss, bs), **kw),
+                             quantized_mlp_chain_reference(x, qs, ss, bs, **kw))
+        if ndiff:
+            raise RuntimeError(f"{case}: {ndiff} elements differ from the plain version")
+        return err, ndiff
+
+    for m, n, dims, pool, acts, relu_last in EDGE_CASES:
+        ws, bs = chain(dims)
         x = torch.randn(m, n, dims[0], generator=gen, device=dev)
         kw = dict(pool=pool, return_acts=acts, relu_last=relu_last)
         case = f"edge {m}x{n} {list(dims)}"
         err = kernel_err(case, x, ws, bs, kw)
-        qs, ss = quantize_chain(ws)
-        q_err, q_diff = compare(f"int8 {case}", quantized_mlp_chain(x, qs, ss, bs, **kw),
-                                quantized_mlp_chain_reference(x, qs, ss, bs, **kw))
+        q_err, q_diff = int8_check(f"int8 {case}", x, ws, bs, kw)
         _say(f"  edge M={m} N={n} dims={list(dims)} {kw}: fused err={err:.3g}; "
              f"int8 err={q_err:.3g}, {q_diff} elements differ")
+    for m, n, dims, bw, offset, pool, acts in INT8_EDGE_CASES:
+        ws, bs = chain(dims)
+        storage = torch.randn(offset + m * n * dims[0], generator=gen, device=dev)
+        x = storage[offset:].view(m, n, dims[0])
+        x[-1, -1, -1] = 2 * x.abs().max()  # the largest |x| sets the last block's scale
+        kw = dict(pool=pool, return_acts=acts, block_windows=bw)
+        err, ndiff = int8_check(f"int8 edge {m}x{n} {list(dims)} offset {offset}", x, ws, bs, kw)
+        _say(f"  int8 edge M={m} N={n} dims={list(dims)} x at float {offset} of its storage "
+             f"{kw}: err={err:.3g}, {ndiff} elements differ")
 
 
 # the peak bound_ms of a fused_mlp_chain row is taken at, when operations bound it
@@ -326,6 +360,26 @@ def int8_bound(m, n, dims, pool, return_acts):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
+def int8_design_bound(m, n, dims, pool, return_acts, g, tile_rows=64):
+    """(design_bound_ms, bound_by, ops, bytes) of the kernel's plan for one
+    int8 chain call: pass p of L runs layers 0..p-1 again (the recompute),
+    over the zero windows too except in the last pass; x is read twice
+    (absmax and the quantizing pass), x_q (int8, Cin padded to 32, whole
+    64-row tiles) written once and read by each later pass; outputs and
+    parameters once."""
+    layers = len(dims) - 1
+    m_pad = m + (-m % g)
+    macs = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    ops = 2.0 * n * (m_pad * sum(sum(macs[:p]) for p in range(1, layers))
+                     + m * sum(macs))
+    xq = m_pad * -(-n // tile_rows) * tile_rows * -(-dims[0] // 32) * 32
+    params = sum(a * b + 8 * b for a, b in zip(dims[:-1], dims[1:]))
+    nbytes = (8.0 * m * n * dims[0] + (layers * xq if layers > 1 else 0) + params
+              + 4.0 * ((m * n * dims[-1] if return_acts else 0) + (m * dims[-1] if pool else 0)))
+    t_ops, t_bytes = ops / INT8_PEAK_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
 def int_mm_chain(x, wq_cols, w_scale, biases, g, pool, relu_last, return_acts):
     """The same int8 chain as one ``torch._int_mm`` per layer (cuBLASLt) and
     torch elementwise ops for the quantization: the library yardstick, timed
@@ -356,7 +410,8 @@ def int_mm_chain(x, wq_cols, w_scale, biases, g, pool, relu_last, return_acts):
 def quantized_phase(model, dev):
     """Phase 3c: quantized_mlp_chain against its plain version, with the
     seeded model's folded and quantized mlp_a and mlp_b → (the per-forward
-    row, the two serving chains summed; one row per case)."""
+    row, the two serving chains summed; one row per case). The kernel runs
+    on the chains prepared once, as the forward runs them."""
     from kernel_timing import device_ms, host_ms
 
     from ampnet_tpu_torch.models.quantized_infer import quantize_encoder_chains
@@ -366,7 +421,7 @@ def quantized_phase(model, dev):
         quantized_mlp_chain_reference,
     )
 
-    mlp_a, mlp_b = quantize_encoder_chains(model)
+    (mlp_a,), (mlp_b,) = quantize_encoder_chains(model)  # prepared, as make_forward holds them
     chains = {"mlp_a": (mlp_a, False, True), "mlp_b": (mlp_b, True, False)}
     # (case, chain, M, N, pool, return_acts, relu_last, block_windows); the
     # padded case has g = 4 and 3 zero windows, bench:mlp_a g = 2
@@ -376,9 +431,10 @@ def quantized_phase(model, dev):
               ("relu_last_false:mlp_b", "mlp_b", 5, 100, True, True, False, 0),
               ("block_windows_3:mlp_a", "mlp_a", *SERVE_GEOM, False, True, True, 3)]
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    rows = []
+    rows, served_design = [], []  # served_design: (ops, bytes) of the plan, printed only
     for case, chain, m, n, pool, acts, relu_last, bw in cases:
-        (wq, s_w, bs), _, _ = chains[chain]
+        prepared, _, _ = chains[chain]
+        wq, s_w, bs = prepared.wq, prepared.w_scale, prepared.biases
         dims = [wq[0].shape[0]] + [q.shape[1] for q in wq]
         g = block_windows_for(m, n, max(dims[1:]), bw)
         # column-major [K, Cout] weights, K padded to a multiple of 8
@@ -386,12 +442,18 @@ def quantized_phase(model, dev):
                    for q in wq]
         x = torch.randn(m, n, dims[0], generator=gen, device=dev)
         kw = dict(pool=pool, return_acts=acts, relu_last=relu_last, block_windows=bw)
-        kern = lambda: quantized_mlp_chain(x, wq, s_w, bs, **kw)
+        kern = lambda: quantized_mlp_chain(x, prepared, **kw)
         plain = lambda: quantized_mlp_chain_reference(x, wq, s_w, bs, **kw)
         library = lambda: int_mm_chain(x, wq_cols, s_w, bs, g, pool, relu_last, acts)
         err, ndiff = compare(case, kern(), plain())
+        if ndiff:
+            raise RuntimeError(f"int8 {case}: {ndiff} elements differ from the plain version")
         lib_err, lib_diff = compare(case, library(), plain(), what="the _int_mm chain")
         bound_ms, bound_by, ops, nbytes = int8_bound(m, n, dims, pool, acts)
+        design_ms, design_by, design_ops, design_bytes = int8_design_bound(
+            m, n, dims, pool, acts, g)
+        if case.startswith("serve:"):
+            served_design.append((design_ops, design_bytes))
         row = {
             "name": f"quantized_mlp_chain:{case}", "case": case, "shape": [m, n, dims],
             "block_windows": g, "padded_windows": -m % g,
@@ -421,13 +483,16 @@ def quantized_phase(model, dev):
              f"(device {row['device_ms']:.4f}) plain={row['plain_ms']:.4f} ms "
              f"(device {row['plain_device_ms']:.4f}) library={row['library_ms']:.4f} ms "
              f"(device {row['library_device_ms']:.4f}) "
-             f"bound={bound_ms:.4f} ms ({bound_by}) launches/call="
+             f"bound={bound_ms:.4f} ms ({bound_by}) share={bound_ms / row['device_ms']:.3f} "
+             f"design bound={design_ms:.4f} ms ({design_by}) launches/call="
              + json.dumps(row["cuda_launches_per_call"]))
         rows.append(row)
         del x
     serve = [r for r in rows if r["case"].startswith("serve:")]
     t_ops = sum(r["ops"] for r in serve) / INT8_PEAK_OPS * 1e3
     t_bytes = sum(r["bytes"] for r in serve) / HBM_BYTES_PER_S * 1e3
+    d_ops = sum(o for o, _ in served_design) / INT8_PEAK_OPS * 1e3
+    d_bytes = sum(b for _, b in served_design) / HBM_BYTES_PER_S * 1e3
     total = {
         "name": "quantized_mlp_chain", "case": "serve: mlp_a and mlp_b of one int8 forward, summed",
         "route": "cuda", "source": "ampnet_tpu_torch/csrc/quantized_mlp.cu",
@@ -439,6 +504,11 @@ def quantized_phase(model, dev):
            for k in ("device_ms", "plain_device_ms", "library_device_ms")},
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
+    _say(f"  int8 serve, both chains summed: kernel={total['ms']:.4f} ms "
+         f"(device {total['device_ms']:.4f}) library={total['library_ms']:.4f} ms "
+         f"(device {total['library_device_ms']:.4f}) bound={total['bound_ms']:.4f} ms "
+         f"({total['bound_by']}) design bound={max(d_ops, d_bytes):.4f} ms "
+         f"({'operations' if d_ops >= d_bytes else 'bytes'})")
     return total, rows
 
 

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Kernel timing on one CUDA card, two ways, and where ``fused_mlp_chain``'s
-time goes.
+"""Kernel timing on one CUDA card, two ways, and where the kernels' time goes.
 
 Run from the root of a checkout, on a machine with the card::
 
-    python3 kernel_timing.py             # fused_mlp_chain at the served and bench chains
-    python3 kernel_timing.py --variants  # ... and variants of its source
+    python3 kernel_timing.py                     # both kernels at the served and bench chains
+    python3 kernel_timing.py --kernels int8      # quantized_mlp_chain only (or: fused)
+    python3 kernel_timing.py --variants          # ... and variants of their sources
+    python3 kernel_timing.py --kernels int8 --passes  # ... and each launch of one int8 call
 
 Two clocks, both CUDA events:
 
@@ -19,20 +20,27 @@ Two clocks, both CUDA events:
 
 The script imports ``ampnet_tpu_torch`` from the directory it lies in. A
 copy placed at the root of another checkout (an earlier commit, unpacked
-with ``git archive``) therefore times that checkout's kernel with the same
-clocks; run the two in turns in one call to compare them on one card.
+with ``git archive``) therefore times that checkout's kernels with the same
+clocks; run the two in turns in one call to compare them on one card. Where
+that checkout has no ``prepare_chain`` / ``prepare_quantized_chain``, its
+wrapper takes the plain weights.
 
-``--variants`` builds ``csrc/fused_mlp.cu`` as it is and variants of it,
-each with one more part of the work dropped or changed, and times them in
-turns (the kernel, every variant, every variant again in reverse order,
-the kernel) at the four served chains. Variants that drop work give wrong
-answers: they exist to be timed, and the printed error says how wrong.
-``cvt_rna`` rounds to tf32 with the ``cvt.rna.tf32.f32`` instruction in
-place of the integer formula, which gives the same bits.
+``--variants`` builds ``csrc/fused_mlp.cu`` and ``csrc/quantized_mlp.cu`` as
+they are and variants of them, each with one part of the work dropped or
+changed, and times them in turns (the kernel, every variant, every variant
+again in reverse order, the kernel) at the served chains. Variants that
+drop work give wrong answers: they exist to be timed, and the printed error
+says how wrong. ``cvt_rna`` rounds to tf32 with the ``cvt.rna.tf32.f32``
+instruction in place of the integer formula, which gives the same bits.
+
+``--passes`` traces calls of ``quantized_mlp_chain`` with torch.profiler and
+prints each device operation of one call (memset, absmax pass, one launch
+per layer pass) with its mean device time, in launch order.
 
 Prints one JSON line per chain and, last, the card's ``nvidia-smi`` name
-and power limit. Weights are seeded random (variance 1/fan_in): a dense
-chain's time does not depend on their values.
+and power limit. Weights are seeded random (variance 1/fan_in; the int8
+chains quantized per channel from them): a dense chain's time does not
+depend on their values.
 """
 
 from __future__ import annotations
@@ -51,6 +59,11 @@ CHAINS = {
     "input_tnet": ((3, 64, 128, 256), True),
     "mlp_a": ((12, 64, 64), False),
     "feature_tnet": ((64, 64, 128, 256), True),
+    "mlp_b": ((64, 64, 128, 128, 256), True),
+}
+# the int8 forward's chains: mlp_a keeps activations, mlp_b pools
+QUANTIZED_CHAINS = {
+    "mlp_a": ((12, 64, 64), False),
     "mlp_b": ((64, 64, 128, 128, 256), True),
 }
 GEOMS = {"serve": (18, 4096), "bench": (288, 2048)}  # (M windows, N points)
@@ -137,6 +150,39 @@ def time_chains() -> None:
             del x, ref
 
 
+def time_quantized() -> None:
+    """The checkout's ``quantized_mlp_chain`` (on a prepared chain where the
+    checkout has ``prepare_quantized_chain``, as its forward calls it) and
+    its plain version at the int8 forward's chains and both geometries, on
+    both clocks, in turns: plain, kernel, kernel, plain. The kernel must
+    agree with the plain version in every element."""
+    from ampnet_tpu_torch.ops import quantized_mlp as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for geom, (m, n) in GEOMS.items():
+        for name, (dims, pool) in QUANTIZED_CHAINS.items():
+            x, ws, bs = chain_inputs(dims, m, n, gen)
+            qs, ss = qm.quantize_chain(ws)
+            kw = dict(pool=pool, return_acts=not pool)
+            prepare = getattr(qm, "prepare_quantized_chain", None)
+            chain = (prepare(qs, ss, bs),) if prepare else (qs, ss, bs)
+            kern = lambda: qm.quantized_mlp_chain(x, *chain, **kw)
+            plain = lambda: qm.quantized_mlp_chain_reference(x, qs, ss, bs, **kw)
+            ref = plain()
+            differ = int((kern() != ref).sum().item())
+            if differ:
+                raise RuntimeError(f"quantized_mlp_chain {name} {geom}: {differ} elements "
+                                   "differ from the plain version")
+            iters = 20
+            row = {"chain": f"int8:{name}", "geom": geom, "shape": [m, n, list(dims)],
+                   "elements_differ": differ}
+            for clock in (host_ms, device_ms):
+                p1, k1, k2, p2 = (clock(f, iters) for f in (plain, kern, kern, plain))
+                row[clock.__name__] = {"kernel": (k1 + k2) / 2, "plain": (p1 + p2) / 2}
+            print(json.dumps(row), flush=True)
+            del x, ref
+
+
 _TF32_INT = "  return __uint_as_float((__float_as_uint(x) + 0x1000u) & ~0x1FFFu);"
 _TF32_CVT = ('  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));\n'
              "  return __uint_as_float(r);")
@@ -168,65 +214,167 @@ VARIANTS = {
     + [(_POOL, "    if (partial != nullptr && n < 0) {")],
 }
 
+_S8_MMA = ("      Mma<N>::run(acc, make_desc(a_addr + off, 128, a_kst * 8), "
+           "make_desc(b_addr + off, 128, kpad * 8));\n")
+_S8_PASSES = "  for (int pass = 1; pass <= n_layers; ++pass) {"
+_S8_DIVIDE = ("  float y = __fmul_rn(v, r_x);\n  y = __fmaf_rn(r_x, __fmaf_rn(-s_x, y, v), y);\n"
+              "  return __fmaf_rn(r_x, __fmaf_rn(-s_x, y, v), y);")
+# (old text, new text) replacements of csrc/quantized_mlp.cu: each drops or
+# changes one part of the work
+QUANTIZED_VARIANTS = {
+    "no_mma": [(_S8_MMA, "")],
+    # the final pass alone: no scale passes (x_q and the scales are left
+    # as they happen to be)
+    "no_scale_passes": [(_S8_PASSES, _S8_PASSES.replace("pass = 1", "pass = n_layers"))],
+    # a product in place of each quantizing division
+    "multiply_not_divide": [(_S8_DIVIDE, "  return __fmul_rn(v, r_x);")],
+    # CUDA's own division (range check and slow path) in place of div_rn
+    "fdiv_rn": [(_S8_DIVIDE, "  return __fdiv_rn(v, s_x);")],
+}
 
-def variant_source(name: str, source: str) -> str:
-    """``source`` (``csrc/fused_mlp.cu``) with the variant's replacements."""
-    for old, new in VARIANTS[name]:
+# kernel source -> its variants
+SOURCE_VARIANTS = {"fused_mlp": VARIANTS, "quantized_mlp": QUANTIZED_VARIANTS}
+
+
+def variant_source(name: str, source: str, kernel: str = "fused_mlp") -> str:
+    """``source`` (``csrc/<kernel>.cu``) with the variant's replacements."""
+    for old, new in SOURCE_VARIANTS[kernel][name]:
         if old not in source:
-            raise RuntimeError(f"variant {name}: csrc/fused_mlp.cu no longer holds {old!r}")
+            raise RuntimeError(f"variant {name}: csrc/{kernel}.cu no longer holds {old!r}")
         source = source.replace(old, new)
     return source
 
 
-def time_variants() -> None:
-    """Each variant's device time at the four served chains, beside the
-    kernel's, and its error against the plain version."""
+def build_variants(kernel: str) -> dict:
+    """{"kernel": the package's build, variant: its build} of csrc/<kernel>.cu,
+    one nvcc each, all started together."""
     from ampnet_tpu_torch.ops import cuda_build
-    from ampnet_tpu_torch.ops import fused_mlp as fm
 
-    source = (cuda_build.CSRC / "fused_mlp.cu").read_text()
+    source = (cuda_build.CSRC / f"{kernel}.cu").read_text()
     out = cuda_build.BUILD / "variants"
     out.mkdir(parents=True, exist_ok=True)
+    variants = SOURCE_VARIANTS[kernel]
 
     def build(name):
-        path = out / f"fused_mlp_{name}.cu"
-        path.write_text(variant_source(name, source))
+        path = out / f"{kernel}_{name}.cu"
+        path.write_text(variant_source(name, source, kernel))
         return ctypes.CDLL(str(cuda_build.build(path)))
 
-    with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:
-        kernel = pool.submit(cuda_build.load, "fused_mlp")
-        libs = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
-        libs = {"kernel": kernel.result(), **libs}
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    with ThreadPoolExecutor(len(variants) + 1) as pool:
+        own = pool.submit(cuda_build.load, kernel)
+        libs = dict(zip(variants, pool.map(build, variants)))
+        return {"kernel": own.result(), **libs}
+
+
+def time_in_turns(run, names) -> dict:
+    """Device ms of ``run(name)`` for each name, timed in turns: every name,
+    then every name again in reverse order; the mean of the two."""
+    times = {}
+    for v in [*names, *reversed(names)]:
+        times.setdefault(v, []).append(device_ms(lambda: run(v), 20))
+    return {k: sum(t) / len(t) for k, t in times.items()}
+
+
+def time_variants(kernels) -> None:
+    """Each variant's device time at the served chains, beside the kernel's,
+    and its error against the plain version."""
     m, n = GEOMS["serve"]
-    for name, (dims, pool_) in CHAINS.items():
-        x, ws, bs = chain_inputs(dims, m, n, gen)
-        chain = fm.prepare_chain(ws, bs)
-        kw = dict(pool=pool_, return_acts=not pool_)
-        ref = fm.fused_mlp_chain_reference(x, ws, bs, **kw)
-        scale = max(1.0, ref.abs().max().item())
-        times, errs = {}, {}
-        for v in ["kernel", *VARIANTS, *reversed(VARIANTS), "kernel"]:
-            run = lambda: fm.fused_mlp_chain(x, chain, library=libs[v], **kw)
-            errs[v] = (run() - ref).abs().max().item() / scale
-            times.setdefault(v, []).append(device_ms(run, 20))
-        print(json.dumps({"variants": name, "shape": [m, n, list(dims)],
-                          "device_ms": {k: sum(t) / len(t) for k, t in times.items()},
-                          "err_of_max_ref": errs}), flush=True)
+    if "fused" in kernels:
+        from ampnet_tpu_torch.ops import fused_mlp as fm
+
+        libs = build_variants("fused_mlp")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for name, (dims, pool_) in CHAINS.items():
+            x, ws, bs = chain_inputs(dims, m, n, gen)
+            chain = fm.prepare_chain(ws, bs)
+            kw = dict(pool=pool_, return_acts=not pool_)
+            ref = fm.fused_mlp_chain_reference(x, ws, bs, **kw)
+            scale = max(1.0, ref.abs().max().item())
+            run = lambda v: fm.fused_mlp_chain(x, chain, library=libs[v], **kw)
+            errs = {v: (run(v) - ref).abs().max().item() / scale for v in libs}
+            print(json.dumps({"variants": name, "shape": [m, n, list(dims)],
+                              "device_ms": time_in_turns(run, ["kernel", *VARIANTS, "kernel"]),
+                              "err_of_max_ref": errs}), flush=True)
+    if "int8" in kernels:
+        from ampnet_tpu_torch.ops import quantized_mlp as qm
+
+        libs = build_variants("quantized_mlp")
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for name, (dims, pool_) in QUANTIZED_CHAINS.items():
+            x, ws, bs = chain_inputs(dims, m, n, gen)
+            qs, ss = qm.quantize_chain(ws)
+            chain = qm.prepare_quantized_chain(qs, ss, bs)
+            kw = dict(pool=pool_, return_acts=not pool_)
+            ref = qm.quantized_mlp_chain_reference(x, qs, ss, bs, **kw)
+            g = qm.block_windows_for(m, n, max(dims[1:]))
+            # the wrapper's launch with another build: (acts, pooled)
+            run = lambda v: qm._launch(x, chain, pool_, True, not pool_, g, libs[v])[int(pool_)]
+            differ = {v: int((run(v) != ref).sum().item()) for v in libs}
+            print(json.dumps({"variants": f"int8:{name}", "shape": [m, n, list(dims)],
+                              "device_ms": time_in_turns(
+                                  run, ["kernel", *QUANTIZED_VARIANTS, "kernel"]),
+                              "elements_differ": differ}), flush=True)
+
+
+def time_passes() -> None:
+    """Each device operation of one ``quantized_mlp_chain`` call at the int8
+    chains and both geometries, in launch order, with its device time in
+    microseconds: the mean over 10 traced calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ampnet_tpu_torch.ops import quantized_mlp as qm
+
+    calls = 10
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for geom, (m, n) in GEOMS.items():
+        for name, (dims, pool) in QUANTIZED_CHAINS.items():
+            x, ws, bs = chain_inputs(dims, m, n, gen)
+            qs, ss = qm.quantize_chain(ws)
+            chain = qm.prepare_quantized_chain(qs, ss, bs)
+            run = lambda: qm.quantized_mlp_chain(x, chain, pool=pool, return_acts=not pool)
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    run()
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+            per = len(ops) // calls
+            if per == 0 or len(ops) != per * calls:
+                print(json.dumps({"passes": f"int8:{name}", "geom": geom,
+                                  "device_us": "not measured: the trace held "
+                                               f"{len(ops)} device operations"}), flush=True)
+                continue
+            times = [sum(ops[c * per + i].device_time_total for c in range(calls)) / calls
+                     for i in range(per)]
+            print(json.dumps({"passes": f"int8:{name}", "geom": geom, "shape": [m, n, list(dims)],
+                              "device_us": [[ops[i].name[:48], t] for i, t in enumerate(times)],
+                              "sum_us": sum(times)}), flush=True)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels", choices=("all", "fused", "int8"), default="all",
+                        help="which kernels to time (default: both)")
     parser.add_argument("--variants", action="store_true",
-                        help="also time variants of csrc/fused_mlp.cu at the served chains")
+                        help="also time variants of the kernels' sources at the served chains")
+    parser.add_argument("--passes", action="store_true",
+                        help="also trace each launch of one quantized_mlp_chain call")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_timing: needs a CUDA card", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version is fp32
-    time_chains()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions are fp32
+    kernels = ("fused", "int8") if args.kernels == "all" else (args.kernels,)
+    if "fused" in kernels:
+        time_chains()
+    if "int8" in kernels:
+        time_quantized()
     if args.variants:
-        time_variants()
+        time_variants(kernels)
+    if args.passes:
+        time_passes()
     print(card_line(), flush=True)
     return 0
 
