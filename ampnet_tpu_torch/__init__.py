@@ -5,13 +5,20 @@ The JAX package stays beside it as the reference; this package imports
 nothing of it (and no JAX). Its layout mirrors the JAX package so each
 counterpart is easy to find:
 
-core      config dataclasses, device selection, weights carried across
-data      the schema pieces the serving path reads
-models    AMP-Net segmenter (``nn.Module``) and the inference backends
-ops       balanced k-means tiling; ``fused_mlp_chain`` (CUDA kernel in
-          ``csrc/fused_mlp.cu`` + its plain PyTorch version)
+core      config dataclasses, device selection, weights carried across (Flax
+          trees, optax Adam state, reference ``.pth``), metrics, checkpoints,
+          CSV logging
+data      schema, artifact loaders, windowed datasets, padded batchers and
+          the GPU-resident dataset cache
+models    AMP-Net segmenter (``nn.Module``, train and eval) and the inference
+          backends
+ops       balanced k-means tiling; augmentation; ``fused_mlp_chain`` and
+          ``quantized_mlp_chain`` (CUDA kernels in ``csrc/`` + their plain
+          PyTorch versions)
+train     losses, train state (Adam + schedule), train/eval steps, the epoch
+          loop and the Trainer
 infer     tiled whole-cloud inference and the HTTP server
-cli       ``python -m ampnet_tpu_torch serve``
+cli       ``python -m ampnet_tpu_torch train`` and ``serve``
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

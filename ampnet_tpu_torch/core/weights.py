@@ -6,7 +6,11 @@
   ``Linear.weight [Cout, Cin]``; BN ``scale``/``bias``/``mean``/``var`` keep
   their names. ``in_proj``'s columns split q/k/v, which is the row split of
   the transposed weight that ``WindowMHA`` uses.
-* ``flax_variables(model)`` is the inverse.
+* ``flax_variables(model)`` is the inverse (through ``flax_leaf_map``, the
+  one table of torch name ↔ Flax path).
+* ``optax_adam_state`` / ``load_optax_adam_state`` carry Adam's state across:
+  optax's ``ScaleByAdamState`` (count, mu, nu) as numpy trees ↔ torch Adam's
+  per-parameter ``step``/``exp_avg``/``exp_avg_sq``.
 * ``load_reference_pth(path)`` reads the reference checkpoint layout
   (``{'base_pointnet': sd, 'segmen_net': sd, ...}``, utils/utils.py:422-438,
   also what ``ampnet export`` writes) into the same tree; ``save_reference_pth``
@@ -16,7 +20,7 @@
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -80,22 +84,98 @@ def load_flax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     return model
 
 
-def flax_variables(model: nn.Module) -> Dict:
-    """The model's weights as a Flax-layout variable tree of numpy arrays."""
-    out: Dict = {"params": {}, "batch_stats": {}}
+def flax_leaf_map(model: nn.Module) -> List[Tuple[str, str, Tuple[str, ...], bool]]:
+    """Every parameter and buffer of ``model`` as (torch name, Flax collection,
+    Flax path, transposed): a Dense ``kernel [Cin, Cout]`` is the transposed
+    ``Linear.weight``; BatchNorm ``scale``/``bias`` are params, ``mean``/``var``
+    batch_stats."""
+    out = []
     for name, mod in model.named_modules():
         path = tuple(name.split(".")) if name else ()
-        np_ = lambda t: t.detach().cpu().numpy().astype(np.float32)
+        pre = f"{name}." if name else ""
         if isinstance(mod, nn.Linear):
-            _set(out["params"], path + ("kernel",), np_(mod.weight).T.copy())
+            out.append((pre + "weight", "params", path + ("kernel",), True))
             if mod.bias is not None:
-                _set(out["params"], path + ("bias",), np_(mod.bias))
+                out.append((pre + "bias", "params", path + ("bias",), False))
         elif isinstance(mod, MaskedBatchNorm):
-            _set(out["params"], path + ("scale",), np_(mod.scale))
-            _set(out["params"], path + ("bias",), np_(mod.bias))
-            _set(out["batch_stats"], path + ("mean",), np_(mod.mean))
-            _set(out["batch_stats"], path + ("var",), np_(mod.var))
+            out += [(pre + leaf, "params", path + (leaf,), False) for leaf in ("scale", "bias")]
+            out += [(pre + leaf, "batch_stats", path + (leaf,), False) for leaf in ("mean", "var")]
     return out
+
+
+def _to_numpy(t: torch.Tensor, transposed: bool) -> np.ndarray:
+    a = t.detach().cpu().numpy().astype(np.float32)
+    return np.ascontiguousarray(a.T) if transposed else a
+
+
+def tensors_to_flax(leaf_map, tensors: Dict[str, torch.Tensor],
+                    collections=("params", "batch_stats")) -> Dict:
+    """Tensors keyed by torch name → a Flax-layout tree of numpy arrays."""
+    out: Dict = {c: {} for c in collections}
+    for tname, coll, path, transposed in leaf_map:
+        if coll in out:
+            _set(out[coll], path, _to_numpy(tensors[tname], transposed))
+    return out
+
+
+def flax_variables(model: nn.Module) -> Dict:
+    """The model's weights as a Flax-layout variable tree of numpy arrays."""
+    return tensors_to_flax(flax_leaf_map(model), model.state_dict())
+
+
+# -- Adam state in optax's terms ----------------------------------------------
+# optax ``ScaleByAdamState(count, mu, nu)``: ``count`` = updates taken (int32),
+# ``mu``/``nu`` = first and second moments in the params' tree. torch's Adam
+# keeps the same moments per parameter (``exp_avg``/``exp_avg_sq``, the
+# kernel's transposed like the weight) and the count as each one's ``step``.
+
+
+def adam_tensors(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """(count, {torch name: (exp_avg, exp_avg_sq)}) of ``optimizer`` over
+    ``model``'s parameters, zeros before the first update."""
+    count, out = 0, {}
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p, {})
+        if st:
+            count = int(st["step"])
+            out[name] = (st["exp_avg"], st["exp_avg_sq"])
+        else:
+            out[name] = (torch.zeros_like(p), torch.zeros_like(p))
+    return count, out
+
+
+def optax_adam_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
+    """torch Adam state → ``{"count", "mu", "nu"}`` as optax's
+    ``ScaleByAdamState`` holds it, numpy arrays in the Flax params tree."""
+    count, moments = adam_tensors(model, optimizer)
+    params = [e for e in flax_leaf_map(model) if e[1] == "params"]
+    return {
+        "count": np.asarray(count, np.int32),
+        "mu": tensors_to_flax(params, {k: m for k, (m, _) in moments.items()}, ("params",))["params"],
+        "nu": tensors_to_flax(params, {k: v for k, (_, v) in moments.items()}, ("params",))["params"],
+    }
+
+
+def load_optax_adam_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                          adam: Dict) -> None:
+    """Set ``optimizer``'s state from optax's ``{"count", "mu", "nu"}``
+    (numpy arrays or tensors in the Flax params tree); every parameter of
+    ``model`` must be covered."""
+    count = int(np.asarray(adam["count"]))
+    named = dict(model.named_parameters())
+    for tname, coll, path, transposed in flax_leaf_map(model):
+        if coll != "params":
+            continue
+        p = named[tname]
+        moments = []
+        for key in ("mu", "nu"):
+            a = np.asarray(_get(adam[key], path), np.float32)
+            a = np.ascontiguousarray(a.T) if transposed else a
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{key} {'.'.join(path)}: shape {a.shape} vs {tuple(p.shape)}")
+            moments.append(torch.from_numpy(np.array(a, copy=True)).to(p.device))
+        optimizer.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                              "exp_avg": moments[0], "exp_avg_sq": moments[1]}
 
 
 # -- the reference .pth layout -------------------------------------------------

@@ -15,10 +15,15 @@ Head with attention (pointnetAtt.py:154-209): centroid pos-enc 2→16→G
 (leaky ReLU), masked 8-head MHA over window tokens, per-point
 [local ‖ attended-G] → G/2 → 64 → num_classes.
 
+Training: ``model.train()`` selects batch BatchNorm statistics and dropout
+(``attn_drop`` on the attention weights, ``drop_1``/``drop_2`` after the head's
+ReLUs), ``model.eval()`` running statistics and no dropout, as Flax's
+``train`` flag does. Dropout masks come from the ``generator`` the caller
+passes to ``forward``; the global RNG is never used.
+
 Not ported yet, and refused at construction: the ``gru`` context and the
 classification heads (ROADMAP Queue 1, item 4), ``local_agg='edge'`` and
-``att_geom_tokens`` (same item). Dropout arrives with the training slice; the
-eval forward has none.
+``att_geom_tokens`` (same item).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ampnet_tpu_torch.models.layers import (
     MaskedBatchNorm,
     SharedMLP,
     TNet,
+    dropout,
     make_linear,
     masked_max_pool,
 )
@@ -117,13 +123,13 @@ class AttentionContext(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
         self.pos_enc = CentroidPositionalEncoding(cfg.global_feat, generator)
-        self.mha = WindowMHA(cfg.global_feat, cfg.att_heads, generator)
+        self.mha = WindowMHA(cfg.global_feat, cfg.att_heads, generator, drop_rate=cfg.dropout)
 
-    def forward(self, global_feats, centroids, window_pad_mask):
+    def forward(self, global_feats, centroids, window_pad_mask, generator=None):
         tokens = global_feats
         if centroids is not None:
             tokens = tokens + self.pos_enc(centroids)
-        return self.mha(tokens, key_padding_mask=window_pad_mask)
+        return self.mha(tokens, key_padding_mask=window_pad_mask, generator=generator)
 
 
 class SegmentationHead(nn.Module):
@@ -138,13 +144,15 @@ class SegmentationHead(nn.Module):
         self.dense_2 = make_linear(mid, 64, True, generator)
         self.bn_2 = MaskedBatchNorm(64, norm_mode=cfg.bn_mode)
         self.dense_out = make_linear(64, cfg.num_classes, True, generator)
+        self.drop_rate = cfg.dropout
 
-    def forward(self, local_feats, context, point_mask=None):
+    def forward(self, local_feats, context, point_mask=None, generator=None):
         B, W, N, _ = local_feats.shape
         ctx = context[:, :, None, :].expand(B, W, N, context.shape[-1])
         h = torch.cat([local_feats, ctx], dim=-1)
-        h = torch.relu(self.bn_1(self.dense_1(h), point_mask))
-        h = torch.relu(self.bn_2(self.dense_2(h), point_mask))
+        rate = self.drop_rate if self.training else 0.0
+        h = dropout(torch.relu(self.bn_1(self.dense_1(h), point_mask)), rate, generator)
+        h = dropout(torch.relu(self.bn_2(self.dense_2(h), point_mask)), rate, generator)
         return self.dense_out(h)
 
 
@@ -159,7 +167,8 @@ class AMPNetSegmenter(nn.Module):
 
     Returns ``(logits [B, W, N, num_classes], feature_transforms, attn_weights)``.
     Weights are initialized as Flax initializes them (lecun-normal kernels,
-    zero biases, identity BN, zero ``fc_out``), from ``generator``."""
+    zero biases, identity BN, zero ``fc_out``), from ``generator``; every
+    BatchNorm takes ``cfg.bn_momentum``."""
 
     def __init__(self, cfg: ModelConfig, num_features: int = 9,
                  generator: Optional[torch.Generator] = None):
@@ -176,13 +185,18 @@ class AMPNetSegmenter(nn.Module):
         if cfg.context == "attention":
             self.context = AttentionContext(cfg, g)
         self.head = SegmentationHead(cfg, cfg.global_feat, g)
+        for mod in self.modules():
+            if isinstance(mod, MaskedBatchNorm):
+                mod.momentum = cfg.bn_momentum
 
-    def forward(self, points, centroids=None, window_pad_mask=None, point_mask=None):
+    def forward(self, points, centroids=None, window_pad_mask=None, point_mask=None,
+                generator: Optional[torch.Generator] = None):
         local_feats, global_feats, t_feat = self.encoder(points, point_mask)
         attn_weights = None
         if self.cfg.context == "attention":
-            ctx, attn_weights = self.context(global_feats, centroids, window_pad_mask)
+            ctx, attn_weights = self.context(global_feats, centroids, window_pad_mask,
+                                             generator=generator)
         else:
             ctx = global_feats
-        logits = self.head(local_feats, ctx, point_mask)
+        logits = self.head(local_feats, ctx, point_mask, generator=generator)
         return logits, t_feat, attn_weights

@@ -6,7 +6,10 @@ sequence is the ≤ 25 window tokens of one cloud, and torch's module gives NaN
 for a fully padded key row where this one (like the JAX module) pads with
 ``finfo(float32).min`` and gets uniform weights. Joint ``in_proj`` with bias
 (columns split q/k/v), scaled dot product, key-padding mask (True = ignore),
-out-projection with bias; returns the weights averaged over heads.
+out-projection with bias; returns the weights averaged over heads. In
+training, dropout (``attn_drop``) acts on the softmax weights before the value
+product, and the averaged weights returned are the post-dropout ones, as in
+the JAX module.
 """
 
 from __future__ import annotations
@@ -17,15 +20,17 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ampnet_tpu_torch.models.layers import make_linear
+from ampnet_tpu_torch.models.layers import dropout, make_linear
 
 
 class WindowMHA(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int, generator: torch.Generator):
+    def __init__(self, embed_dim: int, num_heads: int, generator: torch.Generator,
+                 drop_rate: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by {num_heads} heads")
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.drop_rate = drop_rate
         self.in_proj = make_linear(embed_dim, 3 * embed_dim, True, generator)
         self.out_proj = make_linear(embed_dim, embed_dim, True, generator)
 
@@ -33,18 +38,23 @@ class WindowMHA(nn.Module):
         self,
         tokens: torch.Tensor,  # [B, W, E]
         key_padding_mask: Optional[torch.Tensor] = None,  # [B, W] True = pad/ignore
+        generator: Optional[torch.Generator] = None,  # dropout masks in training
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        rate = self.drop_rate if self.training else 0.0
         return mha_forward(
             tokens, key_padding_mask, self.num_heads,
             self.in_proj.weight.t(), self.in_proj.bias,
             self.out_proj.weight.t(), self.out_proj.bias,
+            drop_rate=rate, generator=generator,
         )
 
 
-def mha_forward(tokens, key_padding_mask, num_heads, w_in, b_in, w_out, b_out):
+def mha_forward(tokens, key_padding_mask, num_heads, w_in, b_in, w_out, b_out,
+                drop_rate: float = 0.0, generator: Optional[torch.Generator] = None):
     """The attention arithmetic on kernels in ``[Cin, Cout]`` layout; shared by
     the module and the folded backends. Returns (out [B, W, E], weights
-    averaged over heads [B, W, W])."""
+    averaged over heads [B, W, W]); ``drop_rate`` > 0 applies dropout to the
+    softmax weights with masks from ``generator``."""
     B, W, E = tokens.shape
     H = num_heads
     D = E // H
@@ -58,6 +68,6 @@ def mha_forward(tokens, key_padding_mask, num_heads, w_in, b_in, w_out, b_out):
     if key_padding_mask is not None:
         neg = torch.finfo(torch.float32).min
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], neg)
-    weights = torch.softmax(scores, dim=-1)
+    weights = dropout(torch.softmax(scores, dim=-1), drop_rate, generator)
     out = (weights @ v).transpose(1, 2).reshape(B, W, E)
     return out @ w_out + b_out, weights.mean(dim=1)

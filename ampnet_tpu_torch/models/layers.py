@@ -7,9 +7,10 @@
 * Parameter and buffer names follow the Flax tree (``dense``/``bn``,
   ``scale``/``bias``/``mean``/``var``), so ``core/weights.py`` maps a Flax
   variable tree onto the modules path for path.
-* This slice serves: ``MaskedBatchNorm`` normalizes with its running
-  statistics (or per-window statistics under ``norm_mode='window'``), and
-  training mode raises until the training slice lands.
+* ``MaskedBatchNorm`` follows ``model.train()`` / ``model.eval()`` as the
+  Flax module follows ``use_running_average=not train``: batch statistics
+  (updating the running ones) in training, running statistics in eval, and
+  per-window statistics in both under ``norm_mode='window'``.
 """
 
 from __future__ import annotations
@@ -19,9 +20,6 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
-
-TRAINING_TODO = "ROADMAP.md Queue 1, item 1 (training slice)"
-
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
     """Flax's default Dense init (variance 1/fan_in), for an ``nn.Linear``
@@ -44,17 +42,45 @@ def make_linear(cin: int, cout: int, bias: bool, generator: torch.Generator,
     return lin
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when float64: statistics and losses are
+    taken in float32 as in the JAX package, and a float64 model (the card
+    against the CPU in ``chip_smoke.py``) keeps its precision."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout`` in training: keep each entry with probability
+    ``1 - rate`` and scale it by ``1 / (1 - rate)``, drawing the mask from
+    ``generator`` (never the global RNG)."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the trailing feature axis (inference).
+    """BatchNorm over the trailing feature axis with an optional validity mask.
 
-    ``norm_mode='batch'`` normalizes with the running statistics;
-    ``'window'`` with per-sample statistics over the point axis (optionally
-    only over ``mask``-true points), as the JAX module does in eval."""
+    In training (``norm_mode='batch'``) it normalizes with batch statistics
+    over every non-feature axis, only over ``mask``-true positions when a mask
+    is given (denominator clamped to ≥ 1), with the *biased* variance
+    E[x²] − E[x]², and updates the running statistics as
+    ``ra = momentum·ra + (1 − momentum)·batch`` (Flax's sense of momentum: 0.9
+    here is torch's 0.1). ``nn.BatchNorm1d`` is not used: its running variance
+    is unbiased. In eval it normalizes with the running statistics.
+    ``norm_mode='window'`` uses per-sample statistics over the point axis in
+    both modes and keeps no running statistics, as the JAX module does."""
 
-    def __init__(self, features: int, eps: float = 1e-5, norm_mode: str = "batch"):
+    def __init__(self, features: int, eps: float = 1e-5, norm_mode: str = "batch",
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
         self.norm_mode = norm_mode
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -62,7 +88,7 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.norm_mode == "window" and x.dim() >= 2:
-            xf = x.float()
+            xf = at_least_float32(x)
             if mask is None:
                 mean = xf.mean(dim=-2, keepdim=True)
                 var = xf.square().mean(dim=-2, keepdim=True) - mean.square()
@@ -72,8 +98,19 @@ class MaskedBatchNorm(nn.Module):
                 mean = (xf * mw).sum(dim=-2, keepdim=True) / denom
                 var = (xf.square() * mw).sum(dim=-2, keepdim=True) / denom - mean.square()
         elif self.training:
-            raise NotImplementedError(
-                f"training-mode BatchNorm is not ported yet: {TRAINING_TODO}")
+            xf = at_least_float32(x)
+            dims = tuple(range(x.dim() - 1))
+            if mask is None:
+                mean = xf.mean(dim=dims)
+                var = xf.square().mean(dim=dims) - mean.square()
+            else:
+                m = mask.float()[..., None]
+                denom = m.sum(dim=dims).clamp_min(1.0)
+                mean = (xf * m).sum(dim=dims) / denom
+                var = (xf.square() * m).sum(dim=dims) / denom - mean.square()
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
         y = (x - mean.to(x.dtype)) * torch.rsqrt(var + self.eps).to(x.dtype)

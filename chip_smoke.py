@@ -41,13 +41,28 @@ the run (non-zero exit, no result line) when it does not hold:
    the micro-batch it was served in, and the kernels' launch counters show
    that every bucket forward went through them (fused: 4 ``fused_mlp_chain``
    launches; int8: 2 ``quantized_mlp_chain`` and 2 ``fused_mlp_chain``);
-6. results -- one ``{"kernels": [...]}`` line, then as the last line
+6. train  -- the training slice at full width: (a) a seeded learnable
+   dataset on disk (96 train and 32 val clouds of 9 windows x 2048 points, 13
+   columns, labels a seeded function of z and NDVI); (b) one ``train_step`` on
+   the card against the same step on a CPU copy (same weights and
+   ``[4, 9, 2048, 9]`` batch, dropout 0, no augmentation: loss to 1e-5
+   relative, gradients to 1e-4 of each parameter's largest, parameters to
+   1e-4); (c) ``python -m ampnet_tpu_torch train ... --device cuda --epochs 2
+   --batch_size 32`` through ``cli.main.main``; (d) 10 steps on one batch, the
+   loss must fall; (e) the best checkpoint restored into a fresh ``Trainer``,
+   bitwise; (f) that checkpoint directory served by ``serve --backend fused
+   --device cuda``: a 50,000-point request equals ``predict_many`` on the
+   restored model, 4 ``fused_mlp_chain`` launches per bucket forward; (g) the
+   ``train:`` line, 3 warm steps at batch 32 x 9 x 2048 on the card;
+7. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import subprocess
@@ -841,6 +856,408 @@ def request_breakdown(inferencer, clouds) -> dict:
     return out
 
 
+# the training phase's data: clouds of 9 windows x 2048 points, 13 columns
+TRAIN_CLOUDS, VAL_CLOUDS = 96, 32
+TRAIN_WINDOWS, TRAIN_POINTS = 9, 2048
+STEP_BATCH = 4  # clouds in the card-against-CPU step
+TRAIN_BATCH = 32  # clouds per step of the train command and the train: line
+# Adam's first update is about lr * sign(g): where |g| is rounding noise, its
+# sign and the parameter it moves are not determined (tests/test_torch_train.py)
+GRAD_NOISE = 1e-7
+
+
+def write_learnable_dataset(folder, seed=SEED):
+    """``kmeans_<name>.pt`` artifacts ``[N, 13, W]`` and the split lists. Each
+    window has its own x/y extent, height range and NDVI level; the raw class
+    is a seeded function of z and NDVI (tower, lines, low and high vegetation,
+    background), so the task can be learnt."""
+    from ampnet_tpu_torch.data.io_utils import save_cloud, write_split_list
+
+    rng = np.random.default_rng(seed)
+    t_tower, t_line, t_veg, t_high = rng.uniform(0.55, 0.75), rng.uniform(0.3, 0.45), \
+        rng.uniform(0.4, 0.6), rng.uniform(0.15, 0.3)
+    names = []
+    n, w = TRAIN_POINTS, TRAIN_WINDOWS
+    for i in range(TRAIN_CLOUDS + VAL_CLOUDS):
+        pc = np.empty((n, 13, w), np.float32)
+        lo = rng.uniform(0.0, 0.4, size=(2, w))
+        hi = lo + rng.uniform(0.3, 0.6, size=(2, w))
+        pc[:, 0:2] = lo + (hi - lo) * rng.uniform(size=(n, 2, w))
+        pc[:, 2] = rng.uniform(size=(n, w)) * rng.uniform(0.2, 1.0, size=w)
+        ndvi_level = rng.uniform(0.1, 0.9, size=w)
+        pc[:, 9] = np.clip(ndvi_level + 0.25 * rng.normal(size=(n, w)), 0.0, 1.0)
+        pc[:, 4:9] = rng.uniform(size=(n, 5, w)) * rng.uniform(0.3, 1.0, size=(5, w))
+        pc[:, 10:13] = rng.uniform(0, 100, size=(n, 3, w))
+        z, ndvi = pc[:, 2], pc[:, 9]
+        pc[:, 3] = np.where(ndvi >= t_veg, np.where(z > t_high, 5, 3),
+                            np.where(z > t_tower, 15, np.where(z > t_line, 14, 1)))
+        save_cloud(os.path.join(folder, f"kmeans_cloud{i:03d}.pt"), pc)
+        names.append(f"cloud{i:03d}.pkl")
+    write_split_list(os.path.join(folder, "train_seg_files.txt"), names[:TRAIN_CLOUDS])
+    write_split_list(os.path.join(folder, "val_seg_files.txt"), names[TRAIN_CLOUDS:])
+    return names
+
+
+def step_batch(folder, names, dev):
+    """The first STEP_BATCH train clouds as one batch on ``dev``."""
+    from ampnet_tpu_torch.data.datasets import WindowedCloudDataset
+    from ampnet_tpu_torch.data.pipeline import PaddedBatcher, to_device_batch
+
+    b = PaddedBatcher(WindowedCloudDataset(folder, names[:STEP_BATCH]), STEP_BATCH,
+                      n_points=TRAIN_POINTS, max_windows=TRAIN_WINDOWS, shuffle=False)
+    return to_device_batch(next(iter(b)), dev)
+
+
+def step_on_card_and_cpu(model, cfg, batch, dev, dtype) -> dict:
+    """One train_step in ``dtype`` on the card and on a CPU copy of ``model``,
+    same batch: how far loss, gradients, parameters and BatchNorm statistics
+    land apart. A parameter entry's sign is determined where the CPU's |g|
+    exceeds max(GRAD_NOISE, 1e-4 of its parameter's largest |g|)."""
+    from ampnet_tpu_torch.train.state import create_train_state
+    from ampnet_tpu_torch.train.step import make_step_fns
+
+    step, _ = make_step_fns(cfg, augment=False)
+    states = {"card": create_train_state(cfg, copy.deepcopy(model).to(dev, dtype), 1, dev),
+              "cpu": create_train_state(cfg, copy.deepcopy(model).to("cpu", dtype), 1, "cpu")}
+    cast = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+    t0 = time.perf_counter()
+    loss = {"card": float(step(states["card"], cast)["loss"])}
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss["cpu"] = float(step(states["cpu"], {k: v.cpu() for k, v in cast.items()})["loss"])
+    cpu_s = time.perf_counter() - t0
+    out = {"loss_card": loss["card"], "loss_cpu": loss["cpu"],
+           "loss_rel_err": abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]),
+           "grad_err_of_max": 0.0, "param_err": 0.0, "params_beyond_1e-4": 0,
+           "params_determined": 0, "undetermined_param_diff": 0.0, "noise_grad_max": 0.0}
+    cpu_params = dict(states["cpu"].model.named_parameters())
+    for name, p in states["card"].model.named_parameters():
+        q = cpu_params[name]
+        g, g_ref = p.grad.cpu().double(), q.grad.double()
+        scale = g_ref.abs().max().item()
+        if scale < GRAD_NOISE:  # exactly zero in exact arithmetic: noise on both
+            out["noise_grad_max"] = max(out["noise_grad_max"], g.abs().max().item(), scale)
+        else:
+            out["grad_err_of_max"] = max(out["grad_err_of_max"],
+                                         (g - g_ref).abs().max().item() / scale)
+        determined = g_ref.abs() > max(GRAD_NOISE, 1e-4 * scale)
+        d = (p.detach().cpu().double() - q.detach().double()).abs()
+        out["params_determined"] += int(determined.sum())
+        if determined.any():
+            out["param_err"] = max(out["param_err"], d[determined].max().item())
+            out["params_beyond_1e-4"] += int((d[determined] > 1e-4).sum())
+        if (~determined).any():
+            out["undetermined_param_diff"] = max(out["undetermined_param_diff"],
+                                                 d[~determined].max().item())
+    out["bn_stats_err"] = max((a.cpu() - b).abs().max().item() for (_, a), (_, b) in zip(
+        states["card"].model.named_buffers(), states["cpu"].model.named_buffers()))
+    out.update(card_step_s=card_s, cpu_step_s=cpu_s, lr=states["cpu"].schedule(0))
+    return out
+
+
+def card_against_cpu_step(cfg, batch, dev) -> dict:
+    """(b): one train_step on the card against the same step on a CPU copy,
+    same weights and batch, dropout 0, no augmentation.
+
+    float64 holds the step itself: the loss to 1e-5 relative, each gradient
+    to 1e-4 of its parameter's largest, each determined parameter entry to
+    1e-4. float32, the path training runs, is held to the loss (1e-5
+    relative), every parameter within the two updates' reach (2 lr), at most
+    1e-4 of the determined entries beyond 1e-4, and gradients within 5e-2 of
+    their max: each max-pool routes a channel's gradient to one of 2048
+    points, and near-ties fall to another point under another summation
+    order (PERF.md §6 has the measured spread; tests/test_torch_train.py
+    holds float32 to 1e-4 at 64 points a window, against JAX)."""
+    model = seeded_model(cfg).train()
+    res = {}
+    for name, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+        r = step_on_card_and_cpu(model, cfg, batch, dev, dtype)
+        res[name] = r
+        _say(f"  card step against CPU step, {name}, batch {list(batch['points'].shape)}: "
+             + json.dumps(r))
+        reach = 2 * r["lr"] * (1 + 1e-5)
+        common = (r["loss_rel_err"] <= 1e-5 and r["undetermined_param_diff"] <= reach
+                  and r["noise_grad_max"] <= 10 * GRAD_NOISE)
+        if name == "float64":
+            ok = common and r["grad_err_of_max"] <= 1e-4 and r["param_err"] <= 1e-4
+        else:
+            ok = (common and r["grad_err_of_max"] <= 5e-2 and r["param_err"] <= reach
+                  and r["params_beyond_1e-4"] <= 1e-4 * r["params_determined"])
+        if not ok:
+            raise RuntimeError(f"the card's {name} train step does not match the CPU's")
+    return res
+
+
+def train_cli(data_dir, out_dir, dev) -> dict:
+    """(c): the train command line at full width on the card, 2 epochs."""
+    from ampnet_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["train", data_dir, "--path_list_files", data_dir, "--out_path", out_dir,
+                       "--device", str(dev), "--epochs", "2", "--batch_size", str(TRAIN_BATCH),
+                       "--seed", str(SEED)])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    if rc != 0:
+        raise RuntimeError(f"train exited {rc}: {text[-2000:]}")
+    summary = json.loads(text[text.index("{"): text.rindex("}") + 1])
+    rows = {}
+    with open(os.path.join(out_dir, "logs", "attention_segmentation_train", "scalars.csv")) as f:
+        for line in f.read().splitlines()[1:]:
+            _, step_, tag, value = line.split(",")
+            rows.setdefault(int(step_), {})[tag] = float(value)
+    ckpt = os.path.join(out_dir, "checkpoints", "attention_segmentation_best")
+    losses = [rows[e]["loss"] for e in sorted(rows) if "loss" in rows[e]]
+    out = {"wall_s": wall, "train_loss": losses,
+           "epoch_seconds": [rows[e]["epoch_seconds"] for e in sorted(rows) if "loss" in rows[e]],
+           "windows_per_sec": [rows[e]["windows_per_sec"] for e in sorted(rows)
+                               if "loss" in rows[e]],
+           "val_loss": summary.get("loss"), "val_miou": summary.get("miou")}
+    _say(f"  train CLI, 2 epochs at batch {TRAIN_BATCH} x {TRAIN_WINDOWS} x {TRAIN_POINTS}: "
+         + json.dumps(out))
+    if len(losses) != 2 or not all(np.isfinite(losses)) or not np.isfinite(summary["loss"]):
+        raise RuntimeError(f"train losses {losses}, val {summary.get('loss')}")
+    if not all(os.path.exists(os.path.join(ckpt, f)) for f in ("meta.json", "state.pt")):
+        raise RuntimeError(f"no best checkpoint in {ckpt}")
+    return out
+
+
+def overfit_one_batch(cfg, batch, dev) -> float:
+    """(d): 10 steps on one batch, no augmentation: last loss / first loss."""
+    from ampnet_tpu_torch.train.state import create_train_state
+    from ampnet_tpu_torch.train.step import make_step_fns
+
+    state = create_train_state(cfg, seeded_model(cfg).train(), 1, dev)
+    step, _ = make_step_fns(cfg, augment=False)
+    losses = torch.stack([step(state, batch)["loss"] for _ in range(10)]).tolist()
+    ratio = losses[-1] / losses[0]
+    _say(f"  10 steps on one batch: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+         f"(ratio {ratio:.4f}): " + json.dumps(losses))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError("the loss did not fall on a fixed batch")
+    return ratio
+
+
+def resume_bitwise(cfg, data_dir, out_dir, names, dev):
+    """(e): the best checkpoint restored into a fresh Trainer, bitwise."""
+    from ampnet_tpu_torch.core.checkpoint import payload, read_payload
+    from ampnet_tpu_torch.data.datasets import WindowedCloudDataset
+    from ampnet_tpu_torch.data.pipeline import PaddedBatcher
+    from ampnet_tpu_torch.models.amp import AMPNetSegmenter
+    from ampnet_tpu_torch.train.trainer import Trainer
+
+    batcher = PaddedBatcher(WindowedCloudDataset(data_dir, names[:TRAIN_CLOUDS]), TRAIN_BATCH,
+                            n_points=TRAIN_POINTS, max_windows=TRAIN_WINDOWS)
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = Trainer(cfg, AMPNetSegmenter(cfg.model), batcher, None, out_dir,
+                          name="attention_segmentation", device=dev)
+    try:
+        if not trainer.resume():
+            raise RuntimeError("resume found no best checkpoint")
+        saved = read_payload(trainer.ckpt.path("attention_segmentation_best"))
+        restored = payload(trainer.state.snapshot(copy=False))
+        n = 0
+
+        def same(a, b, where):
+            nonlocal n
+            for k in a:
+                if isinstance(a[k], dict):
+                    same(a[k], b[k], f"{where}/{k}")
+                elif not (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])):
+                    raise RuntimeError(f"restored {where}/{k} differs from the checkpoint")
+                else:
+                    n += 1
+        same(saved, restored, "")
+        _say(f"  resume: {n} tensors (params, batch_stats, Adam count/mu/nu, step, epoch, "
+             f"lr_scale) bitwise equal to state.pt; step {trainer.state.step}, "
+             f"epoch {trainer.state.epoch}")
+    finally:
+        trainer.close()
+
+
+def serve_trained(ckpt, dev):
+    """(f): the trained checkpoint directory through ``serve --backend fused``;
+    one 50,000-point request against ``predict_many`` on the restored model.
+    Returns the fused_mlp_chain launches counted while serving it."""
+    from ampnet_tpu_torch.cli.main import build_parser, make_server
+    from ampnet_tpu_torch.core.checkpoint import load_model
+    from ampnet_tpu_torch.infer.tiled import TiledInferencer
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+
+    rng = np.random.default_rng(SEED + 5)
+    cloud = rng.normal(size=(50_000, 9)).astype(np.float32) * 0.5
+    cloud[:, :2] = rng.uniform(-1.0, 1.0, size=(50_000, 2))
+    server = make_server(build_parser().parse_args([
+        "serve", "--model_checkpoint", ckpt, "--backend", "fused", "--device", str(dev),
+        "--host", "127.0.0.1", "--port", "0"]))
+    thread = threading.Thread(target=server.httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        host, port = server.address
+        fused_mlp_chain.launches = 0  # the served request's run starts here
+        labels = np.frombuffer(_post(f"http://{host}:{port}/v1/predict", cloud.tobytes(),
+                                     "application/octet-stream"), np.int8).astype(np.int32)
+        launches = fused_mlp_chain.launches  # ... and ends here
+    finally:
+        server.close()
+        thread.join(timeout=60)
+    cfg, model = load_model(ckpt, dev)
+    want = TiledInferencer(model, cfg, backend="fused", device=dev).predict_many(
+        [cloud], seeds=[0])[0]
+    _say(f"  served the trained checkpoint: {cloud.shape[0]} points, labels "
+         f"{np.bincount(labels, minlength=cfg.model.num_classes).tolist()}, "
+         f"{launches} fused_mlp_chain launches for 1 bucket forward")
+    if launches != LAUNCHES_PER_FORWARD["fused"]["fused_mlp_chain"]:
+        raise RuntimeError(f"fused_mlp_chain launched {launches} times for one bucket forward")
+    if not np.array_equal(labels, want):
+        raise RuntimeError(f"served labels differ from predict_many ({(labels != want).sum()})")
+    return launches
+
+
+def step_parts_ms(state, cfg, data, idx, pad) -> dict:
+    """Device ms of one train step's parts (CUDA events): the gather from the
+    cache, the augmentation, forward + loss, backward, the Adam update. The
+    same calls ``make_step_fns``'s step makes, cut at the part boundaries."""
+    from ampnet_tpu_torch.data.device_cache import gather_batch
+    from ampnet_tpu_torch.train.losses import orthogonality_regularizer, weighted_cross_entropy
+    from ampnet_tpu_torch.train.step import augment_batch, window_pad_mask_from_labels
+
+    t = cfg.train
+    cw = torch.tensor(t.class_weights, dtype=torch.float32, device=state.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    batch = gather_batch(data, idx, pad)
+    ev[1].record()
+    gen = state.step_generator()
+    aug = augment_batch(batch, t.augmentations, gen)
+    ev[2].record()
+    state.optimizer.zero_grad(set_to_none=True)
+    logits, t_feat, _ = state.model(aug["points"], aug["centroids"],
+                                    window_pad_mask_from_labels(aug["labels"]), generator=gen)
+    loss = (weighted_cross_entropy(logits, aug["labels"], cw, t.ignore_index)
+            + t.reg_weight * orthogonality_regularizer(t_feat))
+    ev[3].record()
+    loss.backward()
+    ev[4].record()
+    state.apply_gradients()
+    ev[5].record()
+    torch.cuda.synchronize()
+    parts = ("gather", "augment", "forward_and_loss", "backward", "adam")
+    return {p: ev[i].elapsed_time(ev[i + 1]) for i, p in enumerate(parts)}
+
+
+def train_line(cfg, data_dir, names, dev, card):
+    """(g): 3 warm steps at batch TRAIN_BATCH x 9 x 2048 (default recipe, dropout 0.3)
+    from the device cache: host step ms, device busy ms and idle share from
+    torch.profiler, the top device operations, windows/s, peak memory; then
+    the step's parts on CUDA events and the checkpoint layer's host times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ampnet_tpu_torch.core.checkpoint import CheckpointManager
+    from ampnet_tpu_torch.data.datasets import WindowedCloudDataset
+    from ampnet_tpu_torch.data.device_cache import DeviceCachedBatcher, gather_batch
+    from ampnet_tpu_torch.data.pipeline import PaddedBatcher
+    from ampnet_tpu_torch.train.state import create_train_state
+    from ampnet_tpu_torch.train.step import make_step_fns
+
+    cache = DeviceCachedBatcher(PaddedBatcher(
+        WindowedCloudDataset(data_dir, names[:TRAIN_CLOUDS]), TRAIN_BATCH,
+        n_points=TRAIN_POINTS, max_windows=TRAIN_WINDOWS), dev)
+    idxs, pads, _ = cache.epoch_index_matrix()
+    batch = gather_batch(cache.data, torch.from_numpy(idxs[0]).to(dev),
+                         torch.from_numpy(pads[0]).to(dev))
+    state = create_train_state(cfg, seeded_model(cfg).train(), len(cache), dev)
+    step, _ = make_step_fns(cfg)
+    for _ in range(2):  # warm: allocator, cuBLAS plans
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        m = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = {}
+    for e in kernels:
+        top[e.key[:60]] = top.get(e.key[:60], 0.0) + e.self_device_time_total / 1e3 / 3
+    windows = int(batch["points"].shape[0] * batch["points"].shape[1])
+    idx0, pad0 = torch.from_numpy(idxs[0]).to(dev), torch.from_numpy(pads[0]).to(dev)
+    runs = [step_parts_ms(state, cfg, cache.data, idx0, pad0) for _ in range(3)]
+    parts = {k: sum(r[k] for r in runs) / 3 for k in runs[0]}
+    # the checkpoint layer: a device snapshot (enqueue) and a synchronous save
+    ckpt = CheckpointManager(os.path.join(data_dir, "ckpt_timing"))
+    t0 = time.perf_counter()
+    snap = state.snapshot(copy=True)
+    parts["snapshot_enqueue_ms_host"] = (time.perf_counter() - t0) * 1e3
+    del snap
+    t0 = time.perf_counter()
+    ckpt.save("timing", state, config_json=cfg.to_json())
+    parts["checkpoint_save_ms_host"] = (time.perf_counter() - t0) * 1e3
+    out = {
+        "card": card, "batch": list(batch["points"].shape), "step_ms_host": step_ms,
+        "traced_step_ms": traced_ms / 3,
+        "device_busy_ms_per_step": busy / 3 if busy > 0 else "not measured",
+        "idle_share": 1.0 - busy / traced_ms if busy > 0 else "not measured",
+        "device_ops_per_step": sum(e.count for e in kernels) / 3,
+        "windows_per_sec": windows / (step_ms / 1e3),
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "loss": float(m["loss"]),
+        "step_parts_device_ms": parts,
+        "top_device_ops_ms_per_step": dict(sorted(top.items(), key=lambda kv: -kv[1])[:10]),
+    }
+    _say("train: " + json.dumps(out))
+    return out
+
+
+def train_phase(dev, card) -> int:
+    """Phase 6: the training slice (a)-(g) → fused_mlp_chain launches counted
+    while serving the trained checkpoint."""
+    import gc
+
+    from ampnet_tpu_torch.core.config import AMPNetConfig, ModelConfig
+    from ampnet_tpu_torch.ops import cuda_build
+
+    cfg = AMPNetConfig()
+    t_phase = time.perf_counter()
+    cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as tmp:
+        data_dir, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        os.makedirs(data_dir)
+        t0 = time.perf_counter()
+        names = write_learnable_dataset(data_dir)
+        _say(f"  (a) wrote {len(names)} clouds of {TRAIN_WINDOWS} x {TRAIN_POINTS} points in "
+             f"{time.perf_counter() - t0:.2f} s")
+        no_drop = AMPNetConfig(model=ModelConfig(dropout=0.0))
+        batch = step_batch(data_dir, names, dev)
+        _say("  (b)")
+        card_against_cpu_step(no_drop, batch, dev)
+        _say("  (c)")
+        train_cli(data_dir, out_dir, dev)
+        _say("  (d)")
+        overfit_one_batch(cfg, batch, dev)
+        _say("  (e)")
+        resume_bitwise(cfg, data_dir, out_dir, names, dev)
+        _say("  (f)")
+        launches = serve_trained(
+            os.path.join(out_dir, "checkpoints", "attention_segmentation_best"), dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _say("  (g)")
+        train_line(cfg, data_dir, names, dev, card)
+    _say(f"  train phase: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, all started
     together, and loaded."""
@@ -870,27 +1287,31 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     _say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    _say("[1/6] card")
-    _say(card_line())
+    _say("[1/7] card")
+    card = card_line()
+    _say(card)
 
-    _say("[2/6] build")
+    _say("[2/7] build")
     build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
-    _say("[3/6] kernels against their plain versions")
+    _say("[3/7] kernels against their plain versions")
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/6] model: fused and int8 against the module forward")
+    _say("[4/7] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
-    _say("[5/6] serve")
+    _say("[5/7] serve")
     runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
-    _say("[6/6] results")
+    _say("[6/7] train")
+    train_launches = train_phase(dev, card)
+
+    _say("[7/7] results")
     # launches only where the serving runs counted them: each kernel in both
     # runs, and each serving chain once per bucket forward that ran it (its M
     # there is 18 x clouds in the bucket); the other cases are shapes the
@@ -898,6 +1319,8 @@ def main() -> int:
     fwd = {backend: forwards for backend, (_, forwards) in runs.items()}
     for total, name in ((fused_total, "fused_mlp_chain"), (int8_total, "quantized_mlp_chain")):
         total["launches_by_run"] = {backend: counts[name] for backend, (counts, _) in runs.items()}
+        if name == "fused_mlp_chain":  # the trained checkpoint, served under fused
+            total["launches_by_run"]["train_serve"] = train_launches
         total["launches"] = sum(total["launches_by_run"].values())
     tnets = ("serve:input_tnet", "serve:feature_tnet")  # the T-Nets run under both backends
     for row in fused_cases:

@@ -146,9 +146,13 @@ def test_unported_model_options_raise():
     for kw in ({"context": "gru"}, {"local_agg": "edge"}, {"att_geom_tokens": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AMPNetSegmenter(ModelConfig(**kw))
+    # training mode runs (the training slice); its dropout draws only from
+    # an explicit generator
     model = AMPNetSegmenter(ModelConfig()).train()
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="torch.Generator"):
         model(torch.zeros(1, 2, 8, 9))
+    logits, _, _ = model(torch.zeros(1, 2, 8, 9), generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (1, 2, 8, 5) and torch.isfinite(logits).all()
 
 
 def test_window_bn_mode_matches_jax(rng):
