@@ -3,16 +3,23 @@ unless ``--device cpu``. Counterparts of ``ampnet_tpu/cli/main.py``:
 
     train   train the attention segmenter (``cmd_train``): best-val checkpoints
             under ``<out_path>/checkpoints/attention_segmentation_best``
-    serve   a long-lived HTTP server (``cmd_serve``) over a reference ``.pth``
-            or one of the port's checkpoint directories
+    test    tiled evaluation with the IoU CSV (``cmd_test``)
+    infer   label-free per-point predictions of ``.pkl`` clouds (``cmd_infer``)
+    export  a checkpoint as a reference ``.pth`` (``cmd_export``)
+    serve   a long-lived HTTP server (``cmd_serve``)
 
-Options of the JAX command line that this slice does not cover exit 1 with the
-ROADMAP.md item that owns them; ensembles wait for later slices too.
+``test``, ``infer`` and ``serve`` take a reference ``.pth`` or one of the
+port's checkpoint directories, or several of them comma-separated: members of
+one signature (parameter names and shapes, and ``n_points``) stack in one
+``TiledInferencer``, several groups average in an ``EnsembleInferencer``.
+Options of the JAX command line that the port does not cover yet exit 1 with
+the ROADMAP.md item that owns them.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import sys
@@ -22,6 +29,18 @@ from ampnet_tpu_torch.models.backends import BACKENDS
 FAMILIES = "ROADMAP.md Queue 1, item 4 (other families and contexts)"
 PARALLEL = "ROADMAP.md Queue 1, item 5 (parallel)"
 TRAIN_REST = "ROADMAP.md Queue 1, item 7 (training options)"
+WHOLE_TILE = "ROADMAP.md Queue 1, item 3b (whole-tile LAS inference, infer/full_tile.py)"
+
+
+class Refused(ValueError):
+    """A request the command line refuses: ``main`` prints it and exits 1."""
+
+
+def _refuse_unported(checks) -> None:
+    """Raise ``Refused`` for the first (hit, flag, item) that hits."""
+    for hit, flag, item in checks:
+        if hit:
+            raise Refused(f"{flag} is not ported yet: {item}")
 
 
 def _restore_reference(path: str, device):
@@ -43,32 +62,100 @@ def _restore_reference(path: str, device):
     return cfg, model.to(device)
 
 
-def make_server(args):
-    """The InferenceServer that ``serve`` runs (not yet serving)."""
+def _restore_model(path: str, device):
+    """(cfg, model, name) from one checkpoint: a port checkpoint directory
+    (``meta.json`` + ``state.pt``) or a reference ``.pth``."""
     from ampnet_tpu_torch.core.checkpoint import is_checkpoint_dir, load_model
-    from ampnet_tpu_torch.core.device import resolve_device
-    from ampnet_tpu_torch.infer.server import InferenceServer
-    from ampnet_tpu_torch.infer.tiled import TiledInferencer
 
-    path = args.model_checkpoint
+    if not os.path.exists(path):
+        raise Refused(f"checkpoint not found: {path}")
     if os.path.isdir(path):
         if not is_checkpoint_dir(path):
-            raise ValueError(f"{path} is not one of the port's checkpoint directories "
-                             "(meta.json + state.pt); JAX orbax directories cannot be read")
-        device = resolve_device(args.device)
+            raise Refused(f"{path} is not one of the port's checkpoint directories "
+                          "(meta.json + state.pt); JAX orbax directories cannot be read")
         cfg, model = load_model(path, device)
     elif path.endswith((".pth", ".pt")):
-        device = resolve_device(args.device)
         cfg, model = _restore_reference(path, device)
     else:
-        raise ValueError(f"{path}: want a reference .pth or a checkpoint directory")
-    inferencer = TiledInferencer(
-        model, cfg, max_clusters=args.max_clusters, backend=args.backend,
-        tiler=args.tiler, transfer_dtype=args.transfer_dtype, device=device,
-    )
+        raise Refused(f"{path}: want a reference .pth or a checkpoint directory")
+    return cfg, model, os.path.basename(os.path.normpath(path))
+
+
+def _restore_groups(spec: str, device):
+    """A comma-separated ``--model_checkpoint`` → ([(cfg, [model, ...]), ...],
+    name). Members group by signature: ordered (state_dict key, shape) pairs
+    and ``n_points``, what stacking on the device needs."""
+    from ampnet_tpu_torch.infer.tiled import model_signature
+
+    restored = [_restore_model(p, device) for p in spec.split(",") if p]
+    if not restored:
+        raise Refused("--model_checkpoint names no checkpoint")
+    groups = {}
+    for cfg, model, _ in restored:
+        groups.setdefault((model_signature(model), cfg.data.n_points), (cfg, []))[1].append(model)
+    groups = list(groups.values())
+    ncs = {cfg.model.num_classes for cfg, _ in groups}
+    if len(ncs) > 1:
+        raise Refused(f"ensemble members disagree on num_classes: {sorted(ncs)}")
+    return groups, "+".join(name for *_, name in restored)
+
+
+def _make_seg_inferencer(groups, args, device, max_clusters):
+    """One TiledInferencer per group (its members stacked), wrapped in an
+    EnsembleInferencer when there are several groups."""
+    from ampnet_tpu_torch.infer.tiled import EnsembleInferencer, TiledInferencer
+
+    members = [
+        TiledInferencer(models if len(models) > 1 else models[0], cfg,
+                        max_clusters=max_clusters, backend=args.backend, tiler=args.tiler,
+                        transfer_dtype=args.transfer_dtype, device=device)
+        for cfg, models in groups
+    ]
+    return members[0] if len(members) == 1 else EnsembleInferencer(members)
+
+
+def _refuse_other_families(args) -> None:
+    """The values of --task, --arch and --num_devices that the port does not
+    cover yet, on the commands that restore checkpoints."""
+    task = getattr(args, "task", "segmentation")  # test and serve take --task
+    devices = getattr(args, "num_devices", 1)  # serve takes --num_devices
+    _refuse_unported([
+        (task != "segmentation", f"--task {task}", FAMILIES),
+        (args.arch != "attention", f"--arch {args.arch}", FAMILIES),
+        (devices > 1, f"--num_devices {devices}", PARALLEL),
+    ])
+
+
+def _check_views(args) -> None:
+    if not 1 <= args.tta <= 8:
+        raise Refused(f"--tta must be in 1..8 (dihedral period), got {args.tta}")
+    if args.tile_votes < 1:
+        raise Refused(f"--tile_votes must be >= 1, got {args.tile_votes}")
+
+
+def _check_figures(args, flags) -> None:
+    """Every figure flag set needs matplotlib: refuse before any work."""
+    from ampnet_tpu_torch.core.plotting import require_matplotlib
+
+    for flag in flags:
+        if getattr(args, flag):
+            try:
+                require_matplotlib(f"--{flag}")
+            except ModuleNotFoundError as e:
+                raise Refused(str(e)) from e
+
+
+def make_server(args):
+    """The InferenceServer that ``serve`` runs (not yet serving)."""
+    from ampnet_tpu_torch.core.device import resolve_device
+    from ampnet_tpu_torch.infer.server import InferenceServer
+
+    _refuse_other_families(args)
+    device = resolve_device(args.device)
+    groups, name = _restore_groups(args.model_checkpoint, device)
+    inferencer = _make_seg_inferencer(groups, args, device, args.max_clusters)
     return InferenceServer(
-        inferencer, host=args.host, port=args.port,
-        model_name=os.path.basename(os.path.normpath(path)),
+        inferencer, host=args.host, port=args.port, model_name=name,
         batch_window_ms=args.batch_window_ms, max_batch_clouds=args.max_batch_clouds,
     )
 
@@ -83,8 +170,7 @@ def cmd_serve(args) -> int:
               f"x micro-batches {batches}...", file=sys.stderr)
         server.warmup(sizes, batch_sizes=batches)
     host, port = server.address
-    print(f"serving {os.path.basename(os.path.normpath(args.model_checkpoint))} on "
-          f"http://{host}:{port}  "
+    print(f"serving {server.model_name} on http://{host}:{port}  "
           f"(POST /v1/predict, GET /healthz, GET /v1/stats)", flush=True)
     try:
         server.serve_forever()
@@ -103,9 +189,9 @@ def _load_lists(path_list_files: str):
     return out
 
 
-def _train_refusal(args):
-    """The message for an option this slice does not cover, else None."""
-    refused = [
+def _refuse_train_options(args) -> None:
+    """Refuse the train options this port does not cover yet."""
+    _refuse_unported([
         (args.task != "segmentation", f"--task {args.task}", FAMILIES),
         (args.arch != "attention", f"--arch {args.arch}", FAMILIES),
         (args.num_devices > 1, f"--num_devices {args.num_devices}", PARALLEL),
@@ -116,14 +202,11 @@ def _train_refusal(args):
         (args.dtype != "float32", f"--dtype {args.dtype}", TRAIN_REST),
         (args.oversample_factor > 1, f"--oversample_factor {args.oversample_factor}", TRAIN_REST),
         (bool(args.seg_weighing), "--seg_weighing", TRAIN_REST),
-    ]
-    for hit, flag, item in refused:
-        if hit:
-            return f"{flag} is not ported yet: {item}"
+    ])
     if args.grad_accum < 1 or args.batch_size % args.grad_accum:
-        return (f"--batch_size {args.batch_size} must be divisible by --grad_accum "
-                f"{args.grad_accum} (equal micro-batches keep the accumulated gradient exact)")
-    return None
+        raise Refused(f"--batch_size {args.batch_size} must be divisible by --grad_accum "
+                      f"{args.grad_accum} (equal micro-batches keep the accumulated gradient "
+                      "exact)")
 
 
 def cmd_train(args) -> int:
@@ -140,10 +223,7 @@ def cmd_train(args) -> int:
     from ampnet_tpu_torch.models.amp import AMPNetSegmenter
     from ampnet_tpu_torch.train.trainer import Trainer
 
-    refusal = _train_refusal(args)
-    if refusal:
-        print(refusal, file=sys.stderr)
-        return 1
+    _refuse_train_options(args)
     device = resolve_device(args.device)
     cfg = AMPNetConfig(
         data=DataConfig(n_points=args.number_of_points, max_windows=args.number_of_windows),
@@ -187,6 +267,127 @@ def cmd_train(args) -> int:
     print(json.dumps({k: v for k, v in last.items() if np.isfinite(v)}, indent=2))
     print(f"checkpoints + logs in {args.out_path}")
     return 0
+
+
+def cmd_test(args) -> int:
+    """Tiled evaluation of the test (else val) list: appends the summary row
+    to ``<out_path>/IoU-results.csv`` and prints the summary as JSON."""
+    from ampnet_tpu_torch.core.device import resolve_device
+    from ampnet_tpu_torch.data.datasets import EvalCloudDataset
+    from ampnet_tpu_torch.infer.tiled import evaluate_dataset
+
+    _refuse_other_families(args)
+    _check_views(args)
+    _check_figures(args, ("plot", "analysis"))
+    device = resolve_device(args.device)
+    groups, name = _restore_groups(args.model_checkpoint, device)
+    lists = _load_lists(args.path_list_files)
+    ds = EvalCloudDataset(args.dataset_path, lists["test"] or lists["val"])
+    inferencer = _make_seg_inferencer(groups, args, device, args.max_clusters)
+    out = evaluate_dataset(
+        inferencer, ds, out_csv=os.path.join(args.out_path, "IoU-results.csv"),
+        model_name=name, plot_dir=os.path.join(args.out_path, "plots") if args.plot else None,
+        tta=args.tta, tile_votes=args.tile_votes,
+        analysis_dir=args.out_path if args.analysis else None,
+    )
+    print(json.dumps(out["summary"], indent=2))
+    if "analysis" in out:
+        print(f"error analysis -> {os.path.join(args.out_path, 'analysis.json')}",
+              file=sys.stderr)
+    return 0
+
+
+def cmd_infer(args) -> int:
+    """Per-point predictions of every ``.pkl`` cloud in ``dataset_path``:
+    ``<stem>_preds.npy`` (int32), and with ``--save_probs`` also
+    ``<stem>_probs.npy`` (float16) and ``<stem>_hist.png``."""
+    import numpy as np
+
+    from ampnet_tpu_torch.core.device import resolve_device
+    from ampnet_tpu_torch.data.datasets import InferenceCloudDataset
+    from ampnet_tpu_torch.data.schema import normalize_xy_neg_one, select_model_features
+    from ampnet_tpu_torch.infer.tiled import tta_ensemble
+
+    _refuse_other_families(args)
+    _check_views(args)
+    _check_figures(args, ("save_probs",))
+    if glob.glob(os.path.join(args.dataset_path, "*.las")):
+        raise Refused(f"{args.dataset_path} holds .las tiles; whole-tile mode is not ported "
+                      f"yet: {WHOLE_TILE}")
+    device = resolve_device(args.device)
+    groups, _ = _restore_groups(args.model_checkpoint, device)
+    inferencer = _make_seg_inferencer(groups, args, device, None)
+    files = [os.path.basename(f)
+             for f in sorted(glob.glob(os.path.join(args.dataset_path, "*.pkl")))]
+    ds = InferenceCloudDataset(args.dataset_path, files)
+    os.makedirs(args.out_path, exist_ok=True)
+    views = args.tta * args.tile_votes
+    chunk_size = max(1, 16 // views)
+    for start in range(0, len(ds), chunk_size):
+        chunk = [ds[i] for i in range(start, min(start + chunk_size, len(ds)))]
+        feats = [normalize_xy_neg_one(select_model_features(s["points"])) for s in chunk]
+        seeds = list(range(start, start + len(chunk)))
+        if views > 1:
+            outs = [(preds, mean.astype(np.float16)) if args.save_probs else preds
+                    for preds, mean in tta_ensemble(
+                        lambda cs, sd: inferencer.predict_many(cs, seeds=sd, return_probs=True),
+                        feats, args.tta, seeds=seeds, votes=args.tile_votes)]
+        else:
+            outs = inferencer.predict_many(feats, seeds=seeds, return_probs=args.save_probs)
+        for sample, out in zip(chunk, outs):
+            stem = os.path.join(args.out_path, os.path.splitext(sample["name"])[0])
+            if args.save_probs:
+                from ampnet_tpu_torch.core.plotting import plot_class_histograms
+
+                preds, probs = out
+                np.save(stem + "_probs.npy", probs)
+                plot_class_histograms(preds, probs, save_to=stem + "_hist.png",
+                                      title=os.path.basename(stem))
+            else:
+                preds = out
+            np.save(stem + "_preds.npy", preds)
+    print(f"wrote predictions for {len(ds)} clouds to {args.out_path}")
+    return 0
+
+
+def cmd_export(args) -> int:
+    """One checkpoint (a port directory or a ``.pth``) as a reference ``.pth``
+    (utils/utils.py:422-438) with its number_of_points, batch_size and lr."""
+    from ampnet_tpu_torch.core.device import resolve_device
+    from ampnet_tpu_torch.core.weights import flax_variables, save_reference_pth
+
+    _refuse_other_families(args)
+    cfg, model, name = _restore_model(args.model_checkpoint, resolve_device(args.device))
+    meta = {"number_of_points": cfg.data.n_points, "batch_size": cfg.train.batch_size,
+            "lr": cfg.train.learning_rate}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    save_reference_pth(flax_variables(model), args.out, meta=meta)
+    print(f"exported {name} (attention) -> {args.out}")
+    return 0
+
+
+def _add_checkpoint_options(s) -> None:
+    s.add_argument("--model_checkpoint", required=True,
+                   help="a reference .pth or a checkpoint directory written by train; "
+                        "comma-separate several for a probability-averaging ensemble")
+    s.add_argument("--arch", default="attention", help="attention only for now")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a GPU) or cpu")
+
+
+def _add_inference_options(s, default_backend: str) -> None:
+    s.add_argument("--backend", choices=list(BACKENDS), default=default_backend)
+    s.add_argument("--tiler", choices=["balanced", "fast"], default="balanced")
+    s.add_argument("--transfer_dtype", choices=["float32", "float16", "int8"], default=None)
+
+
+def _add_view_options(s) -> None:
+    s.add_argument("--tta", type=int, default=1,
+                   help="average class probabilities over N dihedral views per cloud "
+                        "(1..8; 4 = the 90-degree rotations, 8 = + mirrors); 1 = off")
+    s.add_argument("--tile_votes", type=int, default=1,
+                   help="predict each view under N different tilings and average the "
+                        "probabilities; 1 = off")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -239,19 +440,54 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--seg_weighing", default="")
     s.set_defaults(fn=cmd_train)
 
-    s = sub.add_parser("serve", help="long-lived HTTP inference server")
+    s = sub.add_parser("test", help="tiled evaluation with the IoU CSV")
+    s.add_argument("dataset_path", help="folder of 13-column .pkl clouds")
+    _add_checkpoint_options(s)
+    s.add_argument("--path_list_files", required=True,
+                   help="folder of test_seg_files.txt (else val_seg_files.txt)")
+    s.add_argument("--out_path", default="results")
+    s.add_argument("--task", choices=["segmentation", "classification"],
+                   default="segmentation")
+    s.add_argument("--max_clusters", type=int, default=18)
+    s.add_argument("--plot", action="store_true",
+                   help="save pred-vs-truth scatters of the first clouds (needs matplotlib)")
+    _add_inference_options(s, "xla")
+    _add_view_options(s)
+    s.add_argument("--analysis", action="store_true",
+                   help="write analysis.json + confusion.png: per-class precision/recall, "
+                        "boundary-vs-interior errors, worst clouds (needs matplotlib)")
+    s.set_defaults(fn=cmd_test)
+
+    s = sub.add_parser("infer", help="label-free per-point predictions of .pkl clouds")
+    s.add_argument("dataset_path", help="folder of 13-column .pkl clouds")
+    _add_checkpoint_options(s)
+    s.add_argument("--out_path", default="predictions")
+    _add_inference_options(s, "xla")
+    s.add_argument("--save_probs", action="store_true",
+                   help="also write <name>_probs.npy (float16 softmax) and a confidence "
+                        "histogram <name>_hist.png (needs matplotlib)")
+    _add_view_options(s)
+    s.set_defaults(fn=cmd_infer)
+
+    s = sub.add_parser("export", help="a checkpoint as a reference .pth")
     s.add_argument("--model_checkpoint", required=True,
-                   help="reference .pth checkpoint, or a checkpoint directory "
-                        "<out_path>/checkpoints/<name> written by train")
+                   help="a checkpoint directory written by train, or a .pth")
+    s.add_argument("--out", required=True, help="output .pth path")
+    s.add_argument("--arch", default="attention", help="attention only for now")
     s.add_argument("--device", default="cuda",
-                   help="cuda (default; raises without a GPU) or cpu")
+                   help="where the checkpoint is restored: cuda (default) or cpu")
+    s.set_defaults(fn=cmd_export)
+
+    s = sub.add_parser("serve", help="long-lived HTTP inference server")
+    _add_checkpoint_options(s)
+    s.add_argument("--task", choices=["segmentation", "classification"],
+                   default="segmentation")
+    s.add_argument("--num_devices", type=int, default=1, help="1 for now")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8421)
     s.add_argument("--max_clusters", type=int, default=None,
                    help="tiling cap (default: checkpoint config)")
-    s.add_argument("--backend", choices=list(BACKENDS), default="folded")
-    s.add_argument("--tiler", choices=["balanced", "fast"], default="balanced")
-    s.add_argument("--transfer_dtype", choices=["float32", "float16", "int8"], default=None)
+    _add_inference_options(s, "folded")
     s.add_argument("--batch_window_ms", type=float, default=5.0,
                    help="micro-batching window for concurrent requests")
     s.add_argument("--max_batch_clouds", type=int, default=64)
@@ -266,7 +502,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except (Refused, NotImplementedError) as e:
+        print(e, file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

@@ -32,11 +32,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ampnet_tpu_torch.core.config import AMPNetConfig
+from ampnet_tpu_torch.core.device import resolve_device
 from ampnet_tpu_torch.core.weights import (
     load_flax_variables,
     load_optax_adam_state,
     tensors_to_flax,
 )
+from ampnet_tpu_torch.data.schema import refuse_extra_features
 from ampnet_tpu_torch.models.amp import AMPNetSegmenter
 
 SCHEMA_VERSION = 1
@@ -215,21 +217,20 @@ def is_checkpoint_dir(path: str) -> bool:
         os.path.join(path, STATE_FILE))
 
 
-def load_model(path: str, device="cpu"):
+def load_model(path: str, device="cuda"):
     """(cfg, model in eval mode on ``device``) from a checkpoint directory
     ``<dir>/<name>``: the config from ``meta.json``, the weights and BatchNorm
-    statistics from ``state.pt``."""
+    statistics from ``state.pt``. On the card unless ``device="cpu"``."""
+    dev = resolve_device(device)
     meta = read_meta(path)
     if meta.get("task", "segmentation") != "segmentation" or not meta.get("config"):
         raise NotImplementedError(f"{path}: only segmentation checkpoints with their config "
                                   "are served; classification waits for ROADMAP.md Queue 1, "
                                   "item 4")
     cfg = AMPNetConfig.from_json(json.dumps(meta["config"]))
-    if cfg.data.extra_features:
-        raise NotImplementedError(f"{path}: geometric feature columns are not ported yet "
-                                  "(ROADMAP.md Queue 1, item 4)")
+    refuse_extra_features(cfg.data.extra_features)
     p = read_payload(path)
     model = AMPNetSegmenter(cfg.model, num_features=cfg.data.num_features)
     load_flax_variables(model, {"params": _numpy_tree(p["params"]),
                                 "batch_stats": _numpy_tree(p["batch_stats"])})
-    return cfg, model.to(device).eval()
+    return cfg, model.to(dev).eval()

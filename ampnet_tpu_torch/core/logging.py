@@ -1,6 +1,7 @@
-"""Per-epoch scalar logging to CSV, counterpart of ``ampnet_tpu/core/logging.py``
-(the reference writes TensorBoard scalars and CSV rows,
-``train_pointnet-attention.py:280-309``). The CSV is the record; the port
+"""Per-epoch scalar logging and evaluation-result rows to CSV, counterpart of
+``ampnet_tpu/core/logging.py`` (the reference writes TensorBoard scalars and
+CSV rows, ``train_pointnet-attention.py:280-309``,
+``test_pointnet_att_segmen.py:272-284``). The CSV is the record; the port
 writes no TensorBoard events."""
 
 from __future__ import annotations
@@ -8,7 +9,7 @@ from __future__ import annotations
 import csv
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 
 class MetricsLogger:
@@ -37,3 +38,17 @@ class MetricsLogger:
 
     def close(self) -> None:
         self._csv.close()
+
+
+def append_results_csv(path: str, row: Dict, field_order: Optional[list] = None) -> None:
+    """Append one evaluation-result row (IoU-results-v2.csv style,
+    test_pointnet_att_segmen.py:272-284); the header is written with the
+    file's first row."""
+    exists = os.path.exists(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fields = field_order or list(row.keys())
+    with open(path, "a", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=fields)
+        if not exists:
+            w.writeheader()
+        w.writerow({k: row.get(k) for k in fields})

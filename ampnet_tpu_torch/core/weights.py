@@ -268,7 +268,12 @@ def load_reference_pth(path: str) -> Tuple[Dict, Dict]:
 
 def save_reference_pth(variables: Dict, path: str, meta: Dict = None) -> None:
     """Write Flax-layout ``variables`` (e.g. ``flax_variables(model)``) as a
-    reference ``model_*.pth`` (attention segmenter)."""
+    reference ``model_*.pth`` (attention segmenter); ``meta`` fills the
+    payload's plain fields (number_of_points, batch_size, lr, ...). Trees
+    without ``context.mha`` (other families) are refused."""
+    if "mha" not in variables["params"].get("context", {}):
+        raise NotImplementedError("only the attention segmenter exports (no context.mha in "
+                                  f"these parameters); other families: {FAMILIES_TODO}")
     sds: Dict = {"base_pointnet": {}, "segmen_net": {}}
     for group, key, coll, fpath, kind in _reference_layout():
         a = np.asarray(_get(variables[coll], fpath), np.float32)

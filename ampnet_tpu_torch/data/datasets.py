@@ -1,6 +1,11 @@
-"""Windowed training clouds, the port's own copy of
-``ampnet_tpu/data/datasets.py::WindowedCloudDataset`` (the reference's
-LidarKmeansDataset, ``pointNet/datasets.py:295-460``).
+"""Dataset classes over preprocessed artifacts, the port's own copies of
+``ampnet_tpu/data/datasets.py``:
+
+| here                   | reference              | artifact                      |
+|------------------------|------------------------|-------------------------------|
+| WindowedCloudDataset   | LidarKmeansDataset     | kmeans_<f>.pt [N, 13, W]      |
+| EvalCloudDataset       | LidarDataset4Test      | <f>.pkl, variable N + labels  |
+| InferenceCloudDataset  | LidarInferenceDataset  | <f>.pkl raw, no labels        |
 
 Samples are plain numpy; the batchers (data/pipeline.py) own resampling and
 padding, so every tensor that reaches the device has a static shape.
@@ -48,3 +53,44 @@ class WindowedCloudDataset:
             "centroids": points[:, :, :2].mean(axis=1).astype(np.float32),  # [W, 2]
             "name": os.path.basename(self.paths[index]),
         }
+
+
+class EvalCloudDataset:
+    """Variable-size clouds for evaluation: the 9 model features with x/y
+    rescaled to [-1, 1], remapped labels and the raw class column
+    (LidarDataset4Test, datasets.py:463-515). Noise classes are kept: the
+    reference's tester evaluates every point."""
+
+    def __init__(self, dataset_folder: str, files: Sequence[str], extra_features: int = 0):
+        S.refuse_extra_features(extra_features)
+        self.files = list(files)
+        self.paths = [os.path.join(dataset_folder, f) for f in self.files]
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        pc = load_cloud(self.paths[index])
+        feats = S.select_model_features(pc)
+        feats[:, 0] = feats[:, 0] * 2 - 1
+        feats[:, 1] = feats[:, 1] * 2 - 1
+        return {
+            "points": feats.astype(np.float32),
+            "labels": S.remap_segmentation_labels(pc[:, S.COL.CLASS]).astype(np.int32),
+            "raw_class": pc[:, S.COL.CLASS].astype(np.int32),
+            "name": self.files[index],
+        }
+
+
+class InferenceCloudDataset:
+    """Label-free raw clouds (LidarInferenceDataset, datasets.py:518-565)."""
+
+    def __init__(self, dataset_folder: str, files: Sequence[str]):
+        self.files = list(files)
+        self.paths = [os.path.join(dataset_folder, f) for f in self.files]
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return {"points": load_cloud(self.paths[index]), "name": self.files[index]}

@@ -61,6 +61,25 @@ def drop_noise_points(pc: np.ndarray, noise_classes=DATASET_NOISE_CLASSES) -> np
     return pc[~bad]
 
 
+def select_model_features(pc: np.ndarray, extra_features: int = 0) -> np.ndarray:
+    """Drop the class and raw-coordinate columns → the 9 model features
+    [x,y,z,I,R,G,B,NIR,NDVI] of an [..., 13] array (datasets.py:359).
+
+    ``extra_features > 0`` (the offline geometric columns 13 onward) is
+    refused: those checkpoints are not ported yet."""
+    refuse_extra_features(extra_features)
+    return np.concatenate([pc[..., 0:3], pc[..., 4:10]], axis=-1)
+
+
+def refuse_extra_features(extra_features: int) -> None:
+    """Raise for a model that wants geometric feature columns beyond the
+    canonical 13: ROADMAP.md Queue 1, item 4."""
+    if extra_features:
+        raise NotImplementedError(
+            f"{extra_features} geometric feature columns (13..{NUM_CANONICAL_COLS + extra_features - 1}) "
+            "are not ported yet: ROADMAP.md Queue 1, item 4 (other families and contexts)")
+
+
 def normalize_xy_neg_one(pc: np.ndarray) -> np.ndarray:
     """x,y ∈ [0,1] → [-1,1] (pc_normalize_neg_one, datasets.py:372-384).
     Returns a new array."""

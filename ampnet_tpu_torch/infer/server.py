@@ -453,7 +453,9 @@ def make_handler(service: PredictionService, model_name: str):
                     },
                 )
             elif self.path == "/v1/stats":
-                self._send_json(200, service.stats.snapshot())
+                # members averaged per point (1 for a single checkpoint)
+                self._send_json(200, {**service.stats.snapshot(),
+                                      "ensemble": service.inferencer.ensemble})
             else:
                 self._send_json(404, {"error": f"no route {self.path}"})
 
@@ -605,6 +607,7 @@ class InferenceServer:
         batch_window_ms: float = 5.0,
         max_batch_clouds: int = 64,
     ):
+        self.model_name = model_name
         self.service = PredictionService(
             inferencer, batch_window_ms=batch_window_ms, max_batch_clouds=max_batch_clouds
         )

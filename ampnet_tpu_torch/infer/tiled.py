@@ -30,23 +30,39 @@ clouds. In fp32 a batched reduction or matmul may take its sums in another
 order than the same work at B = 1, so a few labels near a tie may differ,
 as in the JAX package (whose program is compiled per padded batch shape).
 
-Not ported yet: ``EnsembleInferencer``, ``evaluate_dataset`` and the mesh
-(ROADMAP.md Queue 1, items 3 and 5).
+Checkpoint ensembles: ``TiledInferencer`` takes a list of same-signature
+models (one ``make_forward`` each, folded and prepared once) and averages their
+softmax probabilities on the device per bucket; ``EnsembleInferencer``
+averages on the host over member inferencers whose window geometry may
+differ. ``evaluate_dataset`` is the tester behind ``test``: per-class IoU over
+a dataset, one CSV row, optional figures and error analysis.
+
+Not ported yet: the mesh (``--num_devices``, ROADMAP.md Queue 1, item 5).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ampnet_tpu_torch.core.config import AMPNetConfig
 from ampnet_tpu_torch.core.device import resolve_device
+from ampnet_tpu_torch.core.logging import append_results_csv
+from ampnet_tpu_torch.core.metrics import confusion_matrix, iou_from_confusion
+from ampnet_tpu_torch.data.schema import SEG_CLASS_NAMES
 from ampnet_tpu_torch.models.backends import make_forward
 from ampnet_tpu_torch.ops.kmeans import balanced_kmeans, num_tiles_test
 
 KMEANS_FEATURE_IDX = (0, 1, 8)  # x, y, NDVI of the 9-feature layout
+
+
+def model_signature(model) -> tuple:
+    """Ordered (state_dict key, shape) pairs: what stacking members share."""
+    return tuple((k, tuple(v.shape)) for k, v in model.state_dict().items())
 
 
 def dihedral_xy(points9: np.ndarray, t: int) -> np.ndarray:
@@ -110,6 +126,14 @@ class TiledInferencer:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        # checkpoint ensemble: a list of same-signature models, each folded
+        # and prepared once; _run_bucket averages their softmax on the device
+        models = list(model) if isinstance(model, (list, tuple)) else [model]
+        signature = model_signature(models[0])
+        if any(model_signature(m) != signature for m in models[1:]):
+            raise ValueError("stacked ensemble members must have the same parameter "
+                             "names and shapes; wrap differing ones in EnsembleInferencer")
+        self.ensemble = len(models)
         self.model = model
         self.cfg = cfg
         self.n_points = n_points or cfg.data.n_points
@@ -137,7 +161,7 @@ class TiledInferencer:
         # (first-use kernel build, allocator growth, library plans)
         self._warm_shapes: set = set()
         self._cold_count: int = 0
-        self._forward = make_forward(model, cfg, backend, device=self.device)
+        self._forwards = [make_forward(m, cfg, backend, device=self.device) for m in models]
 
     def _mark_program(self, k: int, cap: int, probs: bool, b: int) -> bool:
         key = (k, cap, bool(probs), int(b))
@@ -198,13 +222,22 @@ class TiledInferencer:
             order = torch.arange(n, device=points.device).expand(b, n)
         windows = to_f32(points, scale, offset).reshape(b, k, cap, f)
         centroids = windows[..., :2].mean(dim=2)  # [B, k, 2]
-        logits = self._forward(windows, centroids, None)
-        preds = logits.argmax(dim=-1).reshape(b, n).to(torch.int8)
+        if self.ensemble > 1:
+            # mean of the members' fp32 softmax; labels are its argmax
+            p = torch.stack([torch.softmax(fwd(windows, centroids, None).float(), dim=-1)
+                             for fwd in self._forwards]).mean(dim=0)
+            preds = p.argmax(dim=-1)
+        else:
+            logits = self._forwards[0](windows, centroids, None)
+            preds = logits.argmax(dim=-1)
         # int8 labels (num_classes ≤ 127) quarter the result traffic
+        preds = preds.reshape(b, n).to(torch.int8)
         flat = torch.zeros_like(preds).scatter_(1, order, preds)
         if not probs:
             return flat, None
-        p = torch.softmax(logits, dim=-1).reshape(b, n, -1).to(torch.float16)
+        if self.ensemble == 1:
+            p = torch.softmax(logits, dim=-1)
+        p = p.reshape(b, n, -1).to(torch.float16)
         pflat = torch.zeros_like(p).scatter_(1, order[..., None].expand_as(p), p)
         return flat, pflat
 
@@ -356,3 +389,204 @@ class TiledInferencer:
                 results[i] = ((labels, pflat[row, : sizes[i]].copy())
                               if handle["return_probs"] else labels)
         return results
+
+
+class EnsembleInferencer:
+    """Cross-family checkpoint ensemble: the mean of per-point class
+    probabilities over member ``TiledInferencer``s that need not share
+    window geometry (``n_points``, tiling). Each member scatters its
+    predictions back to the original point order, so the host-side mean is
+    index-exact. Same-signature members belong stacked inside one
+    ``TiledInferencer``; this wrapper composes such groups.
+
+    It has the ``TiledInferencer`` prediction surface (``predict``,
+    ``predict_tta``, ``predict_many``, ``dispatch_many``, ``fetch_many``)
+    and the serving attributes; ``dispatch_many`` enqueues every member's
+    work before any fetch."""
+
+    def __init__(self, members):
+        members = list(members)
+        if len(members) < 2:
+            raise ValueError("EnsembleInferencer needs >= 2 members; a single "
+                             "group belongs in TiledInferencer directly")
+        ncs = {m.cfg.model.num_classes for m in members}
+        if len(ncs) != 1:
+            raise ValueError(f"ensemble members disagree on num_classes: {sorted(ncs)}")
+        self.members = members
+        # the first member stands in for geometry that members may not share
+        self.cfg = members[0].cfg
+        self.n_points = members[0].n_points
+        self.backend = members[0].backend
+        self.max_clusters = max(m.max_clusters for m in members)
+        self.ensemble = sum(m.ensemble for m in members)
+
+    @property
+    def cold_programs_seen(self) -> int:
+        return sum(m.cold_programs_seen for m in self.members)
+
+    def dispatch_many(self, clouds, seeds=None, return_probs: bool = False) -> dict:
+        # members always return probabilities: the mean needs them
+        handles = [m.dispatch_many(clouds, seeds, return_probs=True) for m in self.members]
+        return {
+            "member_handles": handles,
+            "return_probs": return_probs,
+            "cold": any(h["cold"] for h in handles),
+        }
+
+    def fetch_many(self, handle: dict) -> list:
+        per_member = [m.fetch_many(h) for m, h in zip(self.members, handle["member_handles"])]
+        outs = []
+        for i in range(len(per_member[0])):
+            mean = np.mean([np.asarray(r[i][1], np.float32) for r in per_member], axis=0)
+            preds = np.argmax(mean, axis=-1).astype(np.int32)
+            outs.append((preds, mean.astype(np.float16)) if handle["return_probs"] else preds)
+        return outs
+
+    def predict_many(self, clouds, seeds=None, return_probs: bool = False) -> list:
+        return self.fetch_many(self.dispatch_many(clouds, seeds, return_probs))
+
+    def predict(self, points9: np.ndarray, seed: int = 0, return_probs: bool = False):
+        return self.predict_many([points9], seeds=[seed], return_probs=return_probs)[0]
+
+    def predict_tta(self, points9: np.ndarray, seed: int = 0, transforms: int = 4,
+                    return_probs: bool = False, votes: int = 1):
+        T, V = int(transforms), int(votes)
+        if T <= 1 and V <= 1:
+            return self.predict(points9, seed, return_probs)
+        ((preds, mean),) = tta_ensemble(
+            lambda cs, sd: self.predict_many(cs, seeds=sd, return_probs=True),
+            [points9], max(T, 1), seeds=[seed], votes=V,
+        )
+        if return_probs:
+            return preds, mean.astype(np.float16)
+        return preds
+
+
+def evaluate_cloud(preds: np.ndarray, labels: np.ndarray, num_classes: int) -> Dict:
+    """Per-cloud metrics of the reference tester (test_pointnet_att_segmen.py:186-219):
+    IoU of each class present, mIoU over the present classes, overall accuracy,
+    and the confusion matrix (int64)."""
+    cm = confusion_matrix(torch.as_tensor(np.asarray(preds)), torch.as_tensor(np.asarray(labels)),
+                          num_classes)
+    iou, valid = (t.numpy() for t in iou_from_confusion(cm))
+    cm = cm.numpy()
+    out = {"oa": float(np.diag(cm).sum() / max(cm.sum(), 1))}
+    for c, name in enumerate(SEG_CLASS_NAMES[:num_classes]):
+        out[f"iou_{name}"] = float(iou[c]) if valid[c] else float("nan")
+    out["miou"] = float(iou[valid].mean()) if valid.any() else float("nan")
+    out["confusion"] = cm
+    return out
+
+
+def evaluate_dataset(inferencer, dataset, out_csv: Optional[str] = None,
+                     model_name: str = "ampnet_tpu_torch", plot_dir: Optional[str] = None,
+                     plot_limit: int = 8, chunk_size: int = 16, tta: int = 1,
+                     tile_votes: int = 1, analysis_dir: Optional[str] = None) -> Dict:
+    """Evaluate every cloud of ``dataset`` (``EvalCloudDataset``): per-cloud
+    rows, a dataset summary of per-class IoU, mIoU, OA and points/s, and one
+    summary row appended to ``out_csv`` (test_pointnet_att_segmen.py:272-284).
+
+    Clouds are loaded and predicted ``chunk_size`` at a time with seeds
+    ``start..start+len(chunk)``; same-bucket clouds in a chunk share one
+    dispatch. ``tta > 1`` averages class probabilities over that many
+    dihedral views, ``tile_votes > 1`` over that many tilings of each view
+    (``tta_ensemble``); the chunk shrinks by ``tta × tile_votes``.
+    ``plot_dir`` saves pred-vs-truth scatters and histograms of the first
+    ``plot_limit`` clouds and the dataset's class counts; ``analysis_dir``
+    writes ``analysis.json`` and ``confusion.png`` (infer/analysis.py). Both
+    need matplotlib, checked before any work."""
+    tta, tile_votes = int(tta), int(tile_votes)
+    if not 1 <= tta <= 8:
+        raise ValueError(f"tta must be in 1..8 (dihedral period), got {tta}")
+    if tile_votes < 1:
+        raise ValueError(f"tile_votes must be >= 1, got {tile_votes}")
+    if plot_dir or analysis_dir:
+        from ampnet_tpu_torch.core.plotting import require_matplotlib
+
+        require_matplotlib("plot_dir" if plot_dir else "analysis_dir")
+    num_classes = inferencer.cfg.model.num_classes
+    views = tta * tile_votes
+    if views > 1:
+        chunk_size = max(1, chunk_size // views)
+    analyzer = None
+    if analysis_dir:
+        from ampnet_tpu_torch.infer.analysis import ErrorAnalysisAccumulator
+
+        analyzer = ErrorAnalysisAccumulator(num_classes)
+    rows: List[Dict] = []
+    total_cm = np.zeros((num_classes, num_classes), np.int64)
+    gt_counts = np.zeros(num_classes, np.int64)
+    pred_counts = np.zeros(num_classes, np.int64)
+    t0 = time.time()
+    n_points_total = 0
+    for start in range(0, len(dataset), chunk_size):
+        chunk = [dataset[j] for j in range(start, min(start + chunk_size, len(dataset)))]
+        seeds = list(range(start, start + len(chunk)))
+        clouds = [s["points"] for s in chunk]
+        if views > 1:
+            chunk_preds = [p for p, _ in tta_ensemble(
+                lambda cs, sd: inferencer.predict_many(cs, seeds=sd, return_probs=True),
+                clouds, tta, seeds=seeds, votes=tile_votes)]
+        else:
+            chunk_preds = inferencer.predict_many(clouds, seeds=seeds)
+        for i, (sample, preds) in enumerate(zip(chunk, chunk_preds), start=start):
+            m = evaluate_cloud(preds, sample["labels"], num_classes)
+            total_cm += m.pop("confusion")
+            if analyzer is not None:
+                analyzer.update(sample["name"], sample["points"], sample["labels"], preds)
+            n_points_total += len(preds)
+            rows.append({"name": sample["name"], **m})
+            if plot_dir:
+                labels_np = np.asarray(sample["labels"]).astype(np.int64).ravel()
+                valid_lbl = (labels_np >= 0) & (labels_np < num_classes)
+                gt_counts += np.bincount(labels_np[valid_lbl], minlength=num_classes)
+                # the same mask on both sides: predictions on ignore-labelled
+                # points would inflate the predicted bars only
+                pred_counts += np.bincount(np.asarray(preds).ravel()[valid_lbl],
+                                           minlength=num_classes)[:num_classes]
+            if plot_dir and i < plot_limit:
+                from ampnet_tpu_torch.core.plotting import (
+                    plot_class_histograms,
+                    plot_predictions_vs_truth,
+                )
+
+                os.makedirs(plot_dir, exist_ok=True)
+                plot_predictions_vs_truth(
+                    sample["points"][:, :3], preds, sample["labels"],
+                    save_to=os.path.join(plot_dir, f"{sample['name']}.png"),
+                    title=sample["name"])
+                plot_class_histograms(
+                    preds, save_to=os.path.join(plot_dir, f"{sample['name']}_hist.png"),
+                    title=f"{sample['name']} predicted class counts")
+        del chunk, chunk_preds
+    elapsed = time.time() - t0
+
+    iou, valid = (t.numpy() for t in iou_from_confusion(torch.from_numpy(total_cm)))
+    summary = {
+        "model": model_name,
+        "n_points": inferencer.n_points,
+        **{f"iou_{n}": (float(iou[c]) if valid[c] else float("nan"))
+           for c, n in enumerate(SEG_CLASS_NAMES[:num_classes])},
+        "miou": float(iou[valid].mean()) if valid.any() else float("nan"),
+        "oa": float(np.diag(total_cm).sum() / max(total_cm.sum(), 1)),
+        "inference_minutes": round(elapsed / 60, 4),
+        "points_per_sec": round(n_points_total / max(elapsed, 1e-9), 1),
+        "n_clouds": len(rows),
+    }
+    if plot_dir and rows:
+        from ampnet_tpu_torch.core.plotting import plot_class_counts
+
+        os.makedirs(plot_dir, exist_ok=True)
+        plot_class_counts({"ground truth": gt_counts, "predicted": pred_counts},
+                          save_to=os.path.join(plot_dir, "class_counts.png"),
+                          title=f"{model_name}: dataset class balance (GT vs predicted)")
+    result = {"summary": summary, "per_cloud": rows}
+    if analyzer is not None:
+        from ampnet_tpu_torch.infer.analysis import write_analysis
+
+        report = analyzer.finalize()
+        write_analysis(report, analysis_dir)
+        result["analysis"] = report
+    if out_csv:
+        append_results_csv(out_csv, summary)
+    return result

@@ -54,7 +54,19 @@ the run (non-zero exit, no result line) when it does not hold:
    --device cuda``: a 50,000-point request equals ``predict_many`` on the
    restored model, 4 ``fused_mlp_chain`` launches per bucket forward; (g) the
    ``train:`` line, 3 warm steps at batch 32 x 9 x 2048 on the card;
-7. results -- one ``{"kernels": [...]}`` line, then as the last line
+7. evaluate -- phase 6's checkpoint on two 50,000- and two 20,000-point raw
+   13-column clouds (labels phase 6's function of z and NDVI), each run
+   through ``cli.main.main`` with ``--device cuda``: (a) ``test --backend
+   fused``, whose CSV row and summary equal a summary recomputed from
+   ``TiledInferencer.predict_many`` on the same chunk and seeds to 1e-6; (b)
+   ``export`` to a ``.pth``, then ``test`` of the checkpoint and its export,
+   one stacked group of 2 whose labels equal (a)'s; (c) ``test --backend
+   int8``, labels agreeing with (a)'s on > 0.97 of the points; (d) ``infer``,
+   whose predictions equal (a)'s labels; (e) ``test --tta 2 --tile_votes 2``.
+   The launch counters show each run's kernels per bucket forward (fused 4,
+   the stacked pair 8, int8 2 + 2); the ``eval:`` line prints each test's
+   mIoU and points/s beside the card;
+8. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -818,7 +830,7 @@ def request_breakdown(inferencer, clouds) -> dict:
         "tiling": lambda: balanced_kmeans(
             feats, k, generator=torch.Generator(device=dev).manual_seed(0),
             capacities=(cap,) * k),
-        "forward": lambda: inferencer._forward(windows, cent, None),
+        "forward": lambda: inferencer._forwards[0](windows, cent, None),
         "forward_int8": lambda: int8_forward(windows, cent, None),
         **requests,
     }
@@ -866,6 +878,21 @@ TRAIN_BATCH = 32  # clouds per step of the train command and the train: line
 GRAD_NOISE = 1e-7
 
 
+def class_thresholds(rng):
+    """The seeded (tower, line, vegetation, high vegetation) thresholds of z
+    and NDVI that decide a point's raw class: the first four draws of ``rng``."""
+    return (rng.uniform(0.55, 0.75), rng.uniform(0.3, 0.45), rng.uniform(0.4, 0.6),
+            rng.uniform(0.15, 0.3))
+
+
+def raw_class(z, ndvi, thresholds):
+    """Raw class ids from z and NDVI: high and low vegetation (5, 3) above the
+    NDVI threshold, else tower (15), lines (14) or background (1) by height."""
+    t_tower, t_line, t_veg, t_high = thresholds
+    return np.where(ndvi >= t_veg, np.where(z > t_high, 5, 3),
+                    np.where(z > t_tower, 15, np.where(z > t_line, 14, 1)))
+
+
 def write_learnable_dataset(folder, seed=SEED):
     """``kmeans_<name>.pt`` artifacts ``[N, 13, W]`` and the split lists. Each
     window has its own x/y extent, height range and NDVI level; the raw class
@@ -874,8 +901,7 @@ def write_learnable_dataset(folder, seed=SEED):
     from ampnet_tpu_torch.data.io_utils import save_cloud, write_split_list
 
     rng = np.random.default_rng(seed)
-    t_tower, t_line, t_veg, t_high = rng.uniform(0.55, 0.75), rng.uniform(0.3, 0.45), \
-        rng.uniform(0.4, 0.6), rng.uniform(0.15, 0.3)
+    thresholds = class_thresholds(rng)
     names = []
     n, w = TRAIN_POINTS, TRAIN_WINDOWS
     for i in range(TRAIN_CLOUDS + VAL_CLOUDS):
@@ -888,9 +914,7 @@ def write_learnable_dataset(folder, seed=SEED):
         pc[:, 9] = np.clip(ndvi_level + 0.25 * rng.normal(size=(n, w)), 0.0, 1.0)
         pc[:, 4:9] = rng.uniform(size=(n, 5, w)) * rng.uniform(0.3, 1.0, size=(5, w))
         pc[:, 10:13] = rng.uniform(0, 100, size=(n, 3, w))
-        z, ndvi = pc[:, 2], pc[:, 9]
-        pc[:, 3] = np.where(ndvi >= t_veg, np.where(z > t_high, 5, 3),
-                            np.where(z > t_tower, 15, np.where(z > t_line, 14, 1)))
+        pc[:, 3] = raw_class(pc[:, 2], pc[:, 9], thresholds)
         save_cloud(os.path.join(folder, f"kmeans_cloud{i:03d}.pt"), pc)
         names.append(f"cloud{i:03d}.pkl")
     write_split_list(os.path.join(folder, "train_seg_files.txt"), names[:TRAIN_CLOUDS])
@@ -1219,43 +1243,249 @@ def train_line(cfg, data_dir, names, dev, card):
     return out
 
 
-def train_phase(dev, card) -> int:
-    """Phase 6: the training slice (a)-(g) → fused_mlp_chain launches counted
-    while serving the trained checkpoint."""
+def train_phase(dev, card, work) -> tuple:
+    """Phase 6: the training slice (a)-(g) in the directory ``work`` →
+    (fused_mlp_chain launches counted while serving the trained checkpoint,
+    the checkpoint directory)."""
     import gc
 
     from ampnet_tpu_torch.core.config import AMPNetConfig, ModelConfig
-    from ampnet_tpu_torch.ops import cuda_build
 
     cfg = AMPNetConfig()
     t_phase = time.perf_counter()
-    cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as tmp:
-        data_dir, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "out")
-        os.makedirs(data_dir)
-        t0 = time.perf_counter()
-        names = write_learnable_dataset(data_dir)
-        _say(f"  (a) wrote {len(names)} clouds of {TRAIN_WINDOWS} x {TRAIN_POINTS} points in "
-             f"{time.perf_counter() - t0:.2f} s")
-        no_drop = AMPNetConfig(model=ModelConfig(dropout=0.0))
-        batch = step_batch(data_dir, names, dev)
-        _say("  (b)")
-        card_against_cpu_step(no_drop, batch, dev)
-        _say("  (c)")
-        train_cli(data_dir, out_dir, dev)
-        _say("  (d)")
-        overfit_one_batch(cfg, batch, dev)
-        _say("  (e)")
-        resume_bitwise(cfg, data_dir, out_dir, names, dev)
-        _say("  (f)")
-        launches = serve_trained(
-            os.path.join(out_dir, "checkpoints", "attention_segmentation_best"), dev)
-        gc.collect()
-        torch.cuda.empty_cache()
-        _say("  (g)")
-        train_line(cfg, data_dir, names, dev, card)
+    data_dir, out_dir = os.path.join(work, "data"), os.path.join(work, "out")
+    os.makedirs(data_dir)
+    t0 = time.perf_counter()
+    names = write_learnable_dataset(data_dir)
+    _say(f"  (a) wrote {len(names)} clouds of {TRAIN_WINDOWS} x {TRAIN_POINTS} points in "
+         f"{time.perf_counter() - t0:.2f} s")
+    no_drop = AMPNetConfig(model=ModelConfig(dropout=0.0))
+    batch = step_batch(data_dir, names, dev)
+    _say("  (b)")
+    card_against_cpu_step(no_drop, batch, dev)
+    _say("  (c)")
+    train_cli(data_dir, out_dir, dev)
+    _say("  (d)")
+    overfit_one_batch(cfg, batch, dev)
+    _say("  (e)")
+    resume_bitwise(cfg, data_dir, out_dir, names, dev)
+    _say("  (f)")
+    ckpt = os.path.join(out_dir, "checkpoints", "attention_segmentation_best")
+    launches = serve_trained(ckpt, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _say("  (g)")
+    train_line(cfg, data_dir, names, dev, card)
     _say(f"  train phase: {time.perf_counter() - t_phase:.2f} s")
-    return launches
+    return launches, ckpt
+
+
+EVAL_CLOUD_POINTS = (50_000, 50_000, 20_000, 20_000)  # k = 18 and k = 9, cap 4096
+# kernel launches per bucket forward of each evaluate run (a stacked ensemble
+# of M members launches M times the single model's)
+EVAL_RUNS = {
+    "test_fused": LAUNCHES_PER_FORWARD["fused"],
+    "test_ensemble": {k: 2 * v for k, v in LAUNCHES_PER_FORWARD["fused"].items()},
+    "test_int8": LAUNCHES_PER_FORWARD["int8"],
+    "infer_fused": LAUNCHES_PER_FORWARD["fused"],
+    "test_tta": LAUNCHES_PER_FORWARD["fused"],
+}
+
+
+def write_eval_clouds(folder, seed=SEED):
+    """Raw 13-column ``.pkl`` clouds (x, y in [0, 1]; height range and NDVI
+    level vary over the cloud) with phase 6's raw class of z and NDVI, and a
+    ``test_seg_files.txt`` listing them in file-name order."""
+    from ampnet_tpu_torch.data.io_utils import save_cloud, write_split_list
+
+    thresholds = class_thresholds(np.random.default_rng(seed))  # phase 6's
+    rng = np.random.default_rng(seed + 7)
+    names = []
+    for i, n in enumerate(EVAL_CLOUD_POINTS):
+        pc = np.empty((n, 13), np.float32)
+        pc[:, 0:2] = rng.uniform(size=(n, 2))
+        fx, fy, phase = rng.uniform(1.0, 3.0), rng.uniform(1.0, 3.0), rng.uniform(0, 2 * np.pi)
+        wave = np.sin(2 * np.pi * fx * pc[:, 0] + phase) * np.cos(2 * np.pi * fy * pc[:, 1])
+        pc[:, 2] = rng.uniform(size=n) * (0.6 + 0.4 * wave)
+        pc[:, 9] = np.clip(0.5 + 0.4 * wave + 0.25 * rng.normal(size=n), 0.0, 1.0)
+        pc[:, 4:9] = rng.uniform(size=(n, 5)) * rng.uniform(0.3, 1.0, size=5)
+        pc[:, 10:13] = rng.uniform(0, 100, size=(n, 3))
+        pc[:, 3] = raw_class(pc[:, 2], pc[:, 9], thresholds)
+        names.append(f"eval{i}.pkl")
+        save_cloud(os.path.join(folder, names[-1]), pc)
+    write_split_list(os.path.join(folder, "test_seg_files.txt"), names)
+    return names
+
+
+@contextlib.contextmanager
+def eval_probe():
+    """While the command lines run: each TiledInferencer bucket forward is
+    counted with its ensemble size, and the labels predict_many returns are
+    recorded in call order."""
+    from ampnet_tpu_torch.infer.tiled import TiledInferencer
+
+    rec = {"forwards": 0, "ensembles": set(), "labels": []}
+    lock = threading.Lock()
+    run_bucket, predict_many = TiledInferencer._run_bucket, TiledInferencer.predict_many
+
+    def counted_run_bucket(self, *args):
+        with lock:  # buckets of one dispatch run on a thread each
+            rec["forwards"] += 1
+            rec["ensembles"].add(self.ensemble)
+        return run_bucket(self, *args)
+
+    def recorded_predict_many(self, clouds, seeds=None, return_probs=False, init_idx=None):
+        out = predict_many(self, clouds, seeds, return_probs, init_idx)
+        rec["labels"] += [o[0] if return_probs else o for o in out]
+        return out
+
+    TiledInferencer._run_bucket = counted_run_bucket
+    TiledInferencer.predict_many = recorded_predict_many
+    try:
+        yield rec
+    finally:
+        TiledInferencer._run_bucket, TiledInferencer.predict_many = run_bucket, predict_many
+
+
+def eval_cli(run, argv):
+    """One command line through ``cli.main.main`` on the card: exit 0, and
+    the launches of each kernel equal ``EVAL_RUNS[run]`` per bucket forward.
+    Returns (the summary ``test`` prints, else None; launches; probe record;
+    wall seconds)."""
+    from ampnet_tpu_torch.cli.main import main as cli_main
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
+
+    wrappers = {"fused_mlp_chain": fused_mlp_chain, "quantized_mlp_chain": quantized_mlp_chain}
+    buf = io.StringIO()
+    with eval_probe() as rec:
+        for fn in wrappers.values():  # this run of the main path starts here
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}  # ... and ends here
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv[:2])} exited {rc}: {buf.getvalue()[-2000:]}")
+    for name, per in EVAL_RUNS[run].items():
+        if launches[name] != per * rec["forwards"]:
+            raise RuntimeError(f"{run}: {name} launched {launches[name]} times for "
+                               f"{rec['forwards']} bucket forwards; want {per} each")
+    _say(f"  {run}: exit 0 in {wall:.2f} s; {rec['forwards']} bucket forwards, ensemble "
+         f"{sorted(rec['ensembles'])}; launches " + json.dumps(launches))
+    text = buf.getvalue()
+    summary = json.loads(text[text.index("{"): text.rindex("}") + 1]) if argv[0] == "test" else None
+    return summary, launches, rec, wall
+
+
+def summary_of(labels_by_cloud, dataset, num_classes) -> dict:
+    """Per-class IoU, mIoU and OA over the dataset from labels alone (numpy,
+    float64): the summary that ``test`` must print."""
+    cm = np.zeros((num_classes, num_classes), np.int64)
+    for preds, sample in zip(labels_by_cloud, dataset):
+        valid = sample["labels"] >= 0
+        np.add.at(cm, (sample["labels"][valid], preds[valid]), 1)
+    tp = np.diag(cm).astype(np.float64)
+    union = cm.sum(0) + cm.sum(1) - tp
+    present = union > 0
+    iou = np.where(present, tp / np.maximum(union, 1), 0.0)
+    from ampnet_tpu_torch.data.schema import SEG_CLASS_NAMES
+
+    out = {f"iou_{n}": float(iou[c]) if present[c] else float("nan")
+           for c, n in enumerate(SEG_CLASS_NAMES[:num_classes])}
+    out["miou"] = float(iou[present].mean())
+    out["oa"] = float(tp.sum() / cm.sum())
+    return out
+
+
+def same_summary(what, got, want) -> None:
+    for k, v in want.items():
+        g = float(got[k])
+        if np.isnan(v) != np.isnan(g) or (not np.isnan(v) and abs(g - v) > 1e-6):
+            raise RuntimeError(f"{what}: {k} = {g}, recomputed from predict_many {v}")
+
+
+def evaluate_phase(ckpt, dev, card, work) -> dict:
+    """Phase 7: the trained checkpoint through (a) ``test --backend fused``,
+    (b) ``export`` and ``test`` of the checkpoint and its export stacked, (c)
+    ``test --backend int8``, (d) ``infer`` and (e) ``test --tta 2
+    --tile_votes 2`` (run ``test_tta``), on seeded 13-column clouds → each
+    run's launches of each kernel."""
+    from ampnet_tpu_torch.cli.main import main as cli_main
+    from ampnet_tpu_torch.core.checkpoint import load_model
+    from ampnet_tpu_torch.data.datasets import EvalCloudDataset
+    from ampnet_tpu_torch.infer.tiled import TiledInferencer
+
+    t_phase = time.perf_counter()
+    data = os.path.join(work, "eval")
+    os.makedirs(data)
+    names = write_eval_clouds(data)
+    _say(f"  wrote {len(names)} clouds of {list(EVAL_CLOUD_POINTS)} points")
+    pth = os.path.join(work, "exported.pth")
+    test = ["test", data, "--path_list_files", data, "--device", str(dev)]
+    out = {}
+
+    def run(tag, argv):
+        out[tag] = eval_cli(tag, argv)
+        return out[tag]
+
+    # (a) the tester over one chunk of 4 clouds, seeds 0..3
+    summary_a, _, rec_a, _ = run("test_fused", [*test, "--model_checkpoint", ckpt, "--backend",
+                                                "fused", "--out_path", os.path.join(work, "a")])
+    cfg, model = load_model(ckpt, dev)
+    ds = EvalCloudDataset(data, names)
+    samples = [ds[i] for i in range(len(ds))]
+    direct = TiledInferencer(model, cfg, max_clusters=18, backend="fused", device=dev)
+    labels = direct.predict_many([s["points"] for s in samples], seeds=list(range(len(samples))))
+    if not all(np.array_equal(x, y) for x, y in zip(labels, rec_a["labels"])):
+        raise RuntimeError("test's labels differ from predict_many on the same chunk and seeds")
+    want = summary_of(labels, samples, cfg.model.num_classes)
+    with open(os.path.join(work, "a", "IoU-results.csv")) as f:
+        header, row = f.read().splitlines()
+    same_summary("IoU-results.csv", dict(zip(header.split(","), row.split(","))), want)
+    same_summary("test's summary", summary_a, want)
+    # (b) its export beside it: one group of two members of equal weights
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli_main(["export", "--model_checkpoint", ckpt, "--out", pth,
+                     "--device", str(dev)]) != 0:
+            raise RuntimeError("export exited non-zero")
+    summary_b, _, rec_b, _ = run("test_ensemble", [*test, "--model_checkpoint", f"{ckpt},{pth}",
+                                                   "--backend", "fused",
+                                                   "--out_path", os.path.join(work, "b")])
+    if rec_b["ensembles"] != {2}:
+        raise RuntimeError(f"the checkpoint and its export ran as ensembles {rec_b['ensembles']}")
+    if not all(np.array_equal(x, y) for x, y in zip(rec_b["labels"], rec_a["labels"])):
+        raise RuntimeError("the ensemble of two equal members labels differently from one")
+    # (c) the int8 backend against fused
+    summary_c, _, rec_c, _ = run("test_int8", [*test, "--model_checkpoint", ckpt, "--backend",
+                                               "int8", "--out_path", os.path.join(work, "c")])
+    agree = float(np.mean(np.concatenate(rec_c["labels"]) == np.concatenate(rec_a["labels"])))
+    if not agree > 0.97:
+        raise RuntimeError(f"int8 labels agree with fused on {agree} of the points")
+    # (d) infer: the same chunk and seeds as (a)
+    run("infer_fused", ["infer", data, "--model_checkpoint", ckpt, "--backend", "fused",
+                        "--device", str(dev), "--out_path", os.path.join(work, "d")])
+    for name, want_labels in zip(names, rec_a["labels"]):
+        preds = np.load(os.path.join(work, "d", name.replace(".pkl", "_preds.npy")))
+        if preds.dtype != np.int32 or not np.array_equal(preds, want_labels):
+            raise RuntimeError(f"infer's {name} predictions differ from test's labels")
+    # (e) test-time augmentation and tile votes
+    summary_e, *_ = run("test_tta", [*test, "--model_checkpoint", ckpt, "--backend", "fused",
+                                     "--tta", "2", "--tile_votes", "2",
+                                     "--out_path", os.path.join(work, "e")])
+    line = {"card": card, "points": int(sum(EVAL_CLOUD_POINTS)),
+            "int8_label_agreement_with_fused": agree}
+    for tag, s in (("test_fused", summary_a), ("test_ensemble", summary_b),
+                   ("test_int8", summary_c), ("test_tta", summary_e)):
+        if not np.isfinite(s["miou"]) or s["n_clouds"] != len(names):
+            raise RuntimeError(f"{tag}: summary {s}")
+        line[tag] = {"miou": s["miou"], "points_per_sec": s["points_per_sec"],
+                     "wall_s": out[tag][3]}
+    _say("eval: " + json.dumps(line))
+    _say(f"  evaluate phase: {time.perf_counter() - t_phase:.2f} s")
+    return {tag: r[1] for tag, r in out.items()}
 
 
 def build_phase():
@@ -1282,36 +1512,42 @@ def main() -> int:
         return 1
     from ampnet_tpu_torch.core.config import AMPNetConfig
     from ampnet_tpu_torch.core.device import resolve_device
+    from ampnet_tpu_torch.ops import cuda_build
 
     dev = resolve_device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     _say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    _say("[1/7] card")
+    _say("[1/8] card")
     card = card_line()
     _say(card)
 
-    _say("[2/7] build")
+    _say("[2/8] build")
     build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
-    _say("[3/7] kernels against their plain versions")
+    _say("[3/8] kernels against their plain versions")
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/7] model: fused and int8 against the module forward")
+    _say("[4/8] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
-    _say("[5/7] serve")
+    _say("[5/8] serve")
     runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
-    _say("[6/7] train")
-    train_launches = train_phase(dev, card)
+    cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as work:
+        _say("[6/8] train")
+        train_launches, ckpt = train_phase(dev, card, work)
 
-    _say("[7/7] results")
+        _say("[7/8] evaluate")
+        eval_launches = evaluate_phase(ckpt, dev, card, work)
+
+    _say("[8/8] results")
     # launches only where the serving runs counted them: each kernel in both
     # runs, and each serving chain once per bucket forward that ran it (its M
     # there is 18 x clouds in the bucket); the other cases are shapes the
@@ -1321,6 +1557,9 @@ def main() -> int:
         total["launches_by_run"] = {backend: counts[name] for backend, (counts, _) in runs.items()}
         if name == "fused_mlp_chain":  # the trained checkpoint, served under fused
             total["launches_by_run"]["train_serve"] = train_launches
+        for run, counts in eval_launches.items():  # the evaluate runs that launch it
+            if EVAL_RUNS[run][name]:
+                total["launches_by_run"][run] = counts[name]
         total["launches"] = sum(total["launches_by_run"].values())
     tnets = ("serve:input_tnet", "serve:feature_tnet")  # the T-Nets run under both backends
     for row in fused_cases:

@@ -179,7 +179,7 @@ def test_meta_matches_the_jax_checkpoint_manager(tmp_path, jax_setup):
     with pytest.raises(ValueError, match="orbax"):
         CheckpointManager(str(tmp_path / "jax")).load_meta("best")
     with pytest.raises(ValueError, match="orbax"):
-        load_model(str(tmp_path / "jax" / "best"))
+        load_model(str(tmp_path / "jax" / "best"), device="cpu")
 
 
 def test_jax_state_carries_into_the_port_and_steps_alike(jax_setup):
@@ -341,7 +341,7 @@ def test_train_command_line_then_serve_its_checkpoint(tmp_path):
     ckpt = out / "checkpoints" / "attention_segmentation_best"
     assert (ckpt / "state.pt").exists() and (ckpt / "meta.json").exists()
 
-    cfg, model = load_model(str(ckpt))
+    cfg, model = load_model(str(ckpt), device="cpu")
     assert cfg.data.n_points == 32 and not model.training
     server = make_server(build_parser().parse_args([
         "serve", "--model_checkpoint", str(ckpt), "--device", "cpu", "--port", "0",
