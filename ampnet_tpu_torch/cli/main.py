@@ -306,7 +306,7 @@ def cmd_infer(args) -> int:
     from ampnet_tpu_torch.core.device import resolve_device
     from ampnet_tpu_torch.data.datasets import InferenceCloudDataset
     from ampnet_tpu_torch.data.schema import normalize_xy_neg_one, select_model_features
-    from ampnet_tpu_torch.infer.tiled import tta_ensemble
+    from ampnet_tpu_torch.infer.tiled import eval_chunks, predict_chunk
 
     _refuse_other_families(args)
     _check_views(args)
@@ -321,19 +321,11 @@ def cmd_infer(args) -> int:
              for f in sorted(glob.glob(os.path.join(args.dataset_path, "*.pkl")))]
     ds = InferenceCloudDataset(args.dataset_path, files)
     os.makedirs(args.out_path, exist_ok=True)
-    views = args.tta * args.tile_votes
-    chunk_size = max(1, 16 // views)
-    for start in range(0, len(ds), chunk_size):
-        chunk = [ds[i] for i in range(start, min(start + chunk_size, len(ds)))]
+    for idx in eval_chunks(len(ds), args.tta * args.tile_votes):
+        chunk = [ds[i] for i in idx]
         feats = [normalize_xy_neg_one(select_model_features(s["points"])) for s in chunk]
-        seeds = list(range(start, start + len(chunk)))
-        if views > 1:
-            outs = [(preds, mean.astype(np.float16)) if args.save_probs else preds
-                    for preds, mean in tta_ensemble(
-                        lambda cs, sd: inferencer.predict_many(cs, seeds=sd, return_probs=True),
-                        feats, args.tta, seeds=seeds, votes=args.tile_votes)]
-        else:
-            outs = inferencer.predict_many(feats, seeds=seeds, return_probs=args.save_probs)
+        outs = predict_chunk(inferencer, feats, list(idx), args.tta, args.tile_votes,
+                             return_probs=args.save_probs)
         for sample, out in zip(chunk, outs):
             stem = os.path.join(args.out_path, os.path.splitext(sample["name"])[0])
             if args.save_probs:

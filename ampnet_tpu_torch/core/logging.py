@@ -9,7 +9,7 @@ from __future__ import annotations
 import csv
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 
 class MetricsLogger:
@@ -40,15 +40,14 @@ class MetricsLogger:
         self._csv.close()
 
 
-def append_results_csv(path: str, row: Dict, field_order: Optional[list] = None) -> None:
+def append_results_csv(path: str, row: Dict) -> None:
     """Append one evaluation-result row (IoU-results-v2.csv style,
-    test_pointnet_att_segmen.py:272-284); the header is written with the
-    file's first row."""
+    test_pointnet_att_segmen.py:272-284) in the row's key order; the header
+    is written with the file's first row."""
     exists = os.path.exists(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    fields = field_order or list(row.keys())
     with open(path, "a", newline="") as f:
-        w = csv.DictWriter(f, fieldnames=fields)
+        w = csv.DictWriter(f, fieldnames=list(row))
         if not exists:
             w.writeheader()
-        w.writerow({k: row.get(k) for k in fields})
+        w.writerow(row)

@@ -134,7 +134,7 @@ class TiledInferencer:
             raise ValueError("stacked ensemble members must have the same parameter "
                              "names and shapes; wrap differing ones in EnsembleInferencer")
         self.ensemble = len(models)
-        self.model = model
+        self.models = models
         self.cfg = cfg
         self.n_points = n_points or cfg.data.n_points
         self.max_clusters = max_clusters or cfg.data.max_clusters_test
@@ -222,21 +222,20 @@ class TiledInferencer:
             order = torch.arange(n, device=points.device).expand(b, n)
         windows = to_f32(points, scale, offset).reshape(b, k, cap, f)
         centroids = windows[..., :2].mean(dim=2)  # [B, k, 2]
-        if self.ensemble > 1:
+        if self.ensemble == 1:
+            logits = self._forwards[0](windows, centroids, None)
+            preds = logits.argmax(dim=-1)
+            p = torch.softmax(logits, dim=-1) if probs else None
+        else:
             # mean of the members' fp32 softmax; labels are its argmax
             p = torch.stack([torch.softmax(fwd(windows, centroids, None).float(), dim=-1)
                              for fwd in self._forwards]).mean(dim=0)
             preds = p.argmax(dim=-1)
-        else:
-            logits = self._forwards[0](windows, centroids, None)
-            preds = logits.argmax(dim=-1)
         # int8 labels (num_classes ≤ 127) quarter the result traffic
         preds = preds.reshape(b, n).to(torch.int8)
         flat = torch.zeros_like(preds).scatter_(1, order, preds)
         if not probs:
             return flat, None
-        if self.ensemble == 1:
-            p = torch.softmax(logits, dim=-1)
         p = p.reshape(b, n, -1).to(torch.float16)
         pflat = torch.zeros_like(p).scatter_(1, order[..., None].expand_as(p), p)
         return flat, pflat
@@ -462,6 +461,32 @@ class EnsembleInferencer:
         return preds
 
 
+EVAL_CHUNK = 16  # clouds that test and infer load and predict at once
+PLOT_LIMIT = 8  # clouds that test --plot draws
+
+
+def eval_chunks(n_clouds: int, views: int = 1) -> List[range]:
+    """The chunks in which ``test`` and ``infer`` predict ``n_clouds`` clouds:
+    ``EVAL_CHUNK`` clouds, shrunk by the ``views`` (tta × tile_votes) each
+    cloud costs. A chunk's indices are also its clouds' seeds, so the two
+    commands tile every cloud alike."""
+    size = max(1, EVAL_CHUNK // views)
+    return [range(s, min(s + size, n_clouds)) for s in range(0, n_clouds, size)]
+
+
+def predict_chunk(inferencer, clouds, seeds, tta: int = 1, tile_votes: int = 1,
+                  return_probs: bool = False) -> list:
+    """One chunk's labels (with ``return_probs``, (labels, float16 probs)):
+    ``predict_many`` on the chunk's seeds, or for tta × tile_votes > 1 the
+    argmax of the mean probabilities over the views (``tta_ensemble``)."""
+    if tta * tile_votes == 1:
+        return inferencer.predict_many(clouds, seeds=seeds, return_probs=return_probs)
+    outs = tta_ensemble(
+        lambda cs, sd: inferencer.predict_many(cs, seeds=sd, return_probs=True),
+        clouds, tta, seeds=seeds, votes=tile_votes)
+    return [(p, mean.astype(np.float16)) if return_probs else p for p, mean in outs]
+
+
 def evaluate_cloud(preds: np.ndarray, labels: np.ndarray, num_classes: int) -> Dict:
     """Per-cloud metrics of the reference tester (test_pointnet_att_segmen.py:186-219):
     IoU of each class present, mIoU over the present classes, overall accuracy,
@@ -480,21 +505,20 @@ def evaluate_cloud(preds: np.ndarray, labels: np.ndarray, num_classes: int) -> D
 
 def evaluate_dataset(inferencer, dataset, out_csv: Optional[str] = None,
                      model_name: str = "ampnet_tpu_torch", plot_dir: Optional[str] = None,
-                     plot_limit: int = 8, chunk_size: int = 16, tta: int = 1,
-                     tile_votes: int = 1, analysis_dir: Optional[str] = None) -> Dict:
+                     tta: int = 1, tile_votes: int = 1,
+                     analysis_dir: Optional[str] = None) -> Dict:
     """Evaluate every cloud of ``dataset`` (``EvalCloudDataset``): per-cloud
     rows, a dataset summary of per-class IoU, mIoU, OA and points/s, and one
     summary row appended to ``out_csv`` (test_pointnet_att_segmen.py:272-284).
 
-    Clouds are loaded and predicted ``chunk_size`` at a time with seeds
-    ``start..start+len(chunk)``; same-bucket clouds in a chunk share one
-    dispatch. ``tta > 1`` averages class probabilities over that many
-    dihedral views, ``tile_votes > 1`` over that many tilings of each view
-    (``tta_ensemble``); the chunk shrinks by ``tta × tile_votes``.
-    ``plot_dir`` saves pred-vs-truth scatters and histograms of the first
-    ``plot_limit`` clouds and the dataset's class counts; ``analysis_dir``
-    writes ``analysis.json`` and ``confusion.png`` (infer/analysis.py). Both
-    need matplotlib, checked before any work."""
+    Clouds are loaded and predicted in ``eval_chunks`` with their indices as
+    seeds; same-bucket clouds in a chunk share one dispatch. ``tta > 1``
+    averages class probabilities over that many dihedral views,
+    ``tile_votes > 1`` over that many tilings of each view
+    (``predict_chunk``). ``plot_dir`` saves pred-vs-truth scatters and
+    histograms of the first ``PLOT_LIMIT`` clouds and the dataset's class
+    counts; ``analysis_dir`` writes ``analysis.json`` and ``confusion.png``
+    (infer/analysis.py). Both need matplotlib, checked before any work."""
     tta, tile_votes = int(tta), int(tile_votes)
     if not 1 <= tta <= 8:
         raise ValueError(f"tta must be in 1..8 (dihedral period), got {tta}")
@@ -505,9 +529,6 @@ def evaluate_dataset(inferencer, dataset, out_csv: Optional[str] = None,
 
         require_matplotlib("plot_dir" if plot_dir else "analysis_dir")
     num_classes = inferencer.cfg.model.num_classes
-    views = tta * tile_votes
-    if views > 1:
-        chunk_size = max(1, chunk_size // views)
     analyzer = None
     if analysis_dir:
         from ampnet_tpu_torch.infer.analysis import ErrorAnalysisAccumulator
@@ -519,17 +540,11 @@ def evaluate_dataset(inferencer, dataset, out_csv: Optional[str] = None,
     pred_counts = np.zeros(num_classes, np.int64)
     t0 = time.time()
     n_points_total = 0
-    for start in range(0, len(dataset), chunk_size):
-        chunk = [dataset[j] for j in range(start, min(start + chunk_size, len(dataset)))]
-        seeds = list(range(start, start + len(chunk)))
-        clouds = [s["points"] for s in chunk]
-        if views > 1:
-            chunk_preds = [p for p, _ in tta_ensemble(
-                lambda cs, sd: inferencer.predict_many(cs, seeds=sd, return_probs=True),
-                clouds, tta, seeds=seeds, votes=tile_votes)]
-        else:
-            chunk_preds = inferencer.predict_many(clouds, seeds=seeds)
-        for i, (sample, preds) in enumerate(zip(chunk, chunk_preds), start=start):
+    for idx in eval_chunks(len(dataset), tta * tile_votes):
+        chunk = [dataset[j] for j in idx]
+        chunk_preds = predict_chunk(inferencer, [s["points"] for s in chunk], list(idx),
+                                    tta, tile_votes)
+        for i, sample, preds in zip(idx, chunk, chunk_preds):
             m = evaluate_cloud(preds, sample["labels"], num_classes)
             total_cm += m.pop("confusion")
             if analyzer is not None:
@@ -544,7 +559,7 @@ def evaluate_dataset(inferencer, dataset, out_csv: Optional[str] = None,
                 # points would inflate the predicted bars only
                 pred_counts += np.bincount(np.asarray(preds).ravel()[valid_lbl],
                                            minlength=num_classes)[:num_classes]
-            if plot_dir and i < plot_limit:
+            if plot_dir and i < PLOT_LIMIT:
                 from ampnet_tpu_torch.core.plotting import (
                     plot_class_histograms,
                     plot_predictions_vs_truth,

@@ -820,7 +820,7 @@ def request_breakdown(inferencer, clouds) -> dict:
     feats = torch.from_numpy(rows[:, list(KMEANS_FEATURE_IDX)]).to(dev)
     windows = torch.from_numpy(rows).to(dev).reshape(1, k, cap, -1)
     cent = windows[..., :2].mean(dim=2)
-    int8_forward = make_forward(inferencer.model, inferencer.cfg, "int8", device=dev)
+    int8_forward = make_forward(inferencer.models[0], inferencer.cfg, "int8", device=dev)
     requests = {
         "request_x1": lambda: inferencer.predict_many([cloud], seeds=[0]),
         f"request_x{len(clouds)}": lambda: inferencer.predict_many(
@@ -1380,6 +1380,30 @@ def eval_cli(run, argv):
     return summary, launches, rec, wall
 
 
+def traced_cli(argv) -> dict:
+    """One command line again through ``cli.main.main``, the card traced
+    (kernel activity only): its wall ms on the host clock, the device's busy
+    ms and idle share, and the device operations it enqueued."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ampnet_tpu_torch.cli.main import main as cli_main
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    if rc != 0:
+        raise RuntimeError(f"traced {' '.join(argv[:2])} exited {rc}")
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall if busy > 0 else "not measured",
+            "device_ops": sum(e.count for e in kernels)}
+
+
 def summary_of(labels_by_cloud, dataset, num_classes) -> dict:
     """Per-class IoU, mIoU and OA over the dataset from labels alone (numpy,
     float64): the summary that ``test`` must print."""
@@ -1411,8 +1435,9 @@ def evaluate_phase(ckpt, dev, card, work) -> dict:
     """Phase 7: the trained checkpoint through (a) ``test --backend fused``,
     (b) ``export`` and ``test`` of the checkpoint and its export stacked, (c)
     ``test --backend int8``, (d) ``infer`` and (e) ``test --tta 2
-    --tile_votes 2`` (run ``test_tta``), on seeded 13-column clouds → each
-    run's launches of each kernel."""
+    --tile_votes 2`` (run ``test_tta``), on seeded 13-column clouds, then
+    (a) and (e) once more under torch.profiler → each run's launches of each
+    kernel (the traced repeats not counted)."""
     from ampnet_tpu_torch.cli.main import main as cli_main
     from ampnet_tpu_torch.core.checkpoint import load_model
     from ampnet_tpu_torch.data.datasets import EvalCloudDataset
@@ -1427,19 +1452,23 @@ def evaluate_phase(ckpt, dev, card, work) -> dict:
     test = ["test", data, "--path_list_files", data, "--device", str(dev)]
     out = {}
 
-    def run(tag, argv):
+    def run(tag, argv, views=1):
         out[tag] = eval_cli(tag, argv)
+        got = len(out[tag][2]["labels"])
+        if got != len(names) * views:  # else a label comparison could pass on nothing
+            raise RuntimeError(f"{tag}: predict_many returned labels of {got} clouds, "
+                               f"want {len(names) * views}")
         return out[tag]
 
     # (a) the tester over one chunk of 4 clouds, seeds 0..3
-    summary_a, _, rec_a, _ = run("test_fused", [*test, "--model_checkpoint", ckpt, "--backend",
-                                                "fused", "--out_path", os.path.join(work, "a")])
+    argv_a = [*test, "--model_checkpoint", ckpt, "--backend", "fused"]
+    summary_a, _, rec_a, _ = run("test_fused", [*argv_a, "--out_path", os.path.join(work, "a")])
     cfg, model = load_model(ckpt, dev)
     ds = EvalCloudDataset(data, names)
     samples = [ds[i] for i in range(len(ds))]
     direct = TiledInferencer(model, cfg, max_clusters=18, backend="fused", device=dev)
     labels = direct.predict_many([s["points"] for s in samples], seeds=list(range(len(samples))))
-    if not all(np.array_equal(x, y) for x, y in zip(labels, rec_a["labels"])):
+    if len(labels) != len(names) or not all(np.array_equal(x, y) for x, y in zip(labels, rec_a["labels"])):
         raise RuntimeError("test's labels differ from predict_many on the same chunk and seeds")
     want = summary_of(labels, samples, cfg.model.num_classes)
     with open(os.path.join(work, "a", "IoU-results.csv")) as f:
@@ -1472,9 +1501,8 @@ def evaluate_phase(ckpt, dev, card, work) -> dict:
         if preds.dtype != np.int32 or not np.array_equal(preds, want_labels):
             raise RuntimeError(f"infer's {name} predictions differ from test's labels")
     # (e) test-time augmentation and tile votes
-    summary_e, *_ = run("test_tta", [*test, "--model_checkpoint", ckpt, "--backend", "fused",
-                                     "--tta", "2", "--tile_votes", "2",
-                                     "--out_path", os.path.join(work, "e")])
+    argv_e = [*argv_a, "--tta", "2", "--tile_votes", "2"]
+    summary_e, *_ = run("test_tta", [*argv_e, "--out_path", os.path.join(work, "e")], views=4)
     line = {"card": card, "points": int(sum(EVAL_CLOUD_POINTS)),
             "int8_label_agreement_with_fused": agree}
     for tag, s in (("test_fused", summary_a), ("test_ensemble", summary_b),
@@ -1483,6 +1511,9 @@ def evaluate_phase(ckpt, dev, card, work) -> dict:
             raise RuntimeError(f"{tag}: summary {s}")
         line[tag] = {"miou": s["miou"], "points_per_sec": s["points_per_sec"],
                      "wall_s": out[tag][3]}
+    # (a) and (e) once more, warm and traced: where their wall time goes
+    line["traced"] = {tag: traced_cli([*argv, "--out_path", os.path.join(work, f"{tag}_traced")])
+                      for tag, argv in (("test_fused", argv_a), ("test_tta", argv_e))}
     _say("eval: " + json.dumps(line))
     _say(f"  evaluate phase: {time.perf_counter() - t_phase:.2f} s")
     return {tag: r[1] for tag, r in out.items()}

@@ -8,6 +8,7 @@ k > 1 windows get JAX's k-means start through ``init_idx`` (a test-side
 wrapper); k = 1 clouds (n < 2·n_points) need none."""
 
 import csv
+import inspect
 import pickle
 
 import jax
@@ -31,6 +32,7 @@ from ampnet_tpu_torch.infer import analysis
 from ampnet_tpu_torch.infer.tiled import (
     EnsembleInferencer,
     TiledInferencer,
+    eval_chunks,
     evaluate_cloud,
     evaluate_dataset,
 )
@@ -148,6 +150,18 @@ def _assert_same_metrics(a, b, atol):
             assert np.isnan(a[k]) == np.isnan(b[k]), k
             if not np.isnan(a[k]):
                 assert abs(a[k] - b[k]) <= atol, (k, a[k], b[k])
+
+
+@pytest.mark.parametrize("n_clouds, views", [(0, 1), (20, 1), (33, 1), (9, 2), (9, 4), (5, 16),
+                                             (3, 64)])
+def test_eval_chunks_match_jax(n_clouds, views):
+    """``test`` and ``infer`` predict in the chunks, and so with the seeds,
+    of JAX's ``evaluate_dataset`` (chunk_size // views, at least 1)."""
+    size = inspect.signature(jtiled.evaluate_dataset).parameters["chunk_size"].default
+    if views > 1:
+        size = max(1, size // views)
+    want = [range(s, min(s + size, n_clouds)) for s in range(0, n_clouds, size)]
+    assert eval_chunks(n_clouds, views) == want
 
 
 def test_evaluate_cloud_matches_jax():

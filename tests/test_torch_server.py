@@ -195,7 +195,7 @@ def test_serve_int8_command_line_matches_predict_many(pair, tmp_path):
     weights (restored from a reference .pth)."""
     fused = pair[1].service.inferencer  # the port model and config of the fused server
     ckpt = tmp_path / "model_attention.pth"
-    save_reference_pth(flax_variables(fused.model), str(ckpt), meta={"number_of_points": 64})
+    save_reference_pth(flax_variables(fused.models[0]), str(ckpt), meta={"number_of_points": 64})
     server = make_server(build_parser().parse_args([
         "serve", "--model_checkpoint", str(ckpt), "--device", "cpu", "--port", "0",
         "--backend", "int8", "--max_clusters", "3", "--batch_window_ms", "1",
@@ -215,7 +215,7 @@ def test_serve_int8_command_line_matches_predict_many(pair, tmp_path):
         server.close()
         t.join(timeout=30)
     assert not t.is_alive()
-    direct = TiledInferencer(fused.model, fused.cfg, backend="int8", device="cpu")
+    direct = TiledInferencer(fused.models[0], fused.cfg, backend="int8", device="cpu")
     np.testing.assert_array_equal(binary, direct.predict_many([one], seeds=[0])[0])
     for got, want in zip(labels, direct.predict_many(two, seeds=[0, 0])):
         np.testing.assert_array_equal(np.asarray(got), want)
