@@ -8,17 +8,22 @@ counterpart is easy to find:
 core      config dataclasses, device selection, weights carried across (Flax
           trees, optax Adam state, reference ``.pth``), metrics, checkpoints,
           CSV logging
-data      schema, artifact loaders, windowed datasets, padded batchers and
-          the GPU-resident dataset cache
+data      schema, artifact loaders, LAS I/O, synthetic scenes, windowed
+          datasets, padded batchers and the GPU-resident dataset cache
+preproc   offline LAS → windows stages: window split, height above ground,
+          filter and normalise, balanced k-means tiling, split lists
+native    the host min-cost-flow solver and FPS (C++ in ``csrc/``, ctypes)
 models    AMP-Net segmenter (``nn.Module``, train and eval) and the inference
           backends
-ops       balanced k-means tiling; augmentation; ``fused_mlp_chain`` and
-          ``quantized_mlp_chain`` (CUDA kernels in ``csrc/`` + their plain
-          PyTorch versions)
+ops       balanced k-means tiling; sampling (FPS); augmentation;
+          ``fused_mlp_chain`` and ``quantized_mlp_chain`` (CUDA kernels in
+          ``csrc/`` + their plain PyTorch versions)
 train     losses, train state (Adam + schedule), train/eval steps, the epoch
           loop and the Trainer
-infer     tiled whole-cloud inference and the HTTP server
-cli       ``python -m ampnet_tpu_torch train`` and ``serve``
+infer     tiled whole-cloud and whole-tile LAS inference, evaluation and the
+          HTTP server
+cli       ``python -m ampnet_tpu_torch synth|preprocess|fps|train|test|infer|
+          export|serve|demo``
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -1,12 +1,19 @@
 """``python -m ampnet_tpu_torch`` — the port's command line, on the card
 unless ``--device cpu``. Counterparts of ``ampnet_tpu/cli/main.py``:
 
-    train   train the attention segmenter (``cmd_train``): best-val checkpoints
-            under ``<out_path>/checkpoints/attention_segmentation_best``
-    test    tiled evaluation with the IoU CSV (``cmd_test``)
-    infer   label-free per-point predictions of ``.pkl`` clouds (``cmd_infer``)
-    export  a checkpoint as a reference ``.pth`` (``cmd_export``)
-    serve   a long-lived HTTP server (``cmd_serve``)
+    synth       synthetic LAS tiles from a seed (``cmd_synth``)
+    preprocess  LAS tiles → windows → 13-column .pkl clouds + k-means
+                artifacts + split lists (``cmd_preprocess``; host stages,
+                the native min-cost-flow solver by default)
+    fps         farthest-point subsampling of .pkl clouds (``cmd_fps``)
+    train       train the attention segmenter (``cmd_train``): best-val checkpoints
+                under ``<out_path>/checkpoints/attention_segmentation_best``
+    test        tiled evaluation with the IoU CSV (``cmd_test``)
+    infer       label-free per-point predictions of ``.pkl`` clouds, or whole
+                ``.las`` tiles labelled into classified LAS files (``cmd_infer``)
+    export      a checkpoint as a reference ``.pth`` (``cmd_export``)
+    serve       a long-lived HTTP server (``cmd_serve``)
+    demo        synth → preprocess → train → test on synthetic tiles (``cmd_demo``)
 
 ``test``, ``infer`` and ``serve`` take a reference ``.pth`` or one of the
 port's checkpoint directories, or several of them comma-separated: members of
@@ -29,7 +36,6 @@ from ampnet_tpu_torch.models.backends import BACKENDS
 FAMILIES = "ROADMAP.md Queue 1, item 4 (other families and contexts)"
 PARALLEL = "ROADMAP.md Queue 1, item 5 (parallel)"
 TRAIN_REST = "ROADMAP.md Queue 1, item 7 (training options)"
-WHOLE_TILE = "ROADMAP.md Queue 1, item 3b (whole-tile LAS inference, infer/full_tile.py)"
 
 
 class Refused(ValueError):
@@ -179,6 +185,154 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_synth(args) -> int:
+    """Write synthetic LAS tiles (with ground points so the HAG stage has work):
+    the JAX command's draws in its order, so one seed writes the same bytes."""
+    import numpy as np
+
+    from ampnet_tpu_torch.data.las_io import LasCloud, write_las
+    from ampnet_tpu_torch.data.synthetic import (
+        make_terrain,
+        synthetic_scene,
+        synthetic_scene_hard,
+    )
+
+    os.makedirs(args.out_path, exist_ok=True)
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.n_tiles):
+        parts = []
+        for _ in range(args.windows_per_tile):
+            # landscape windows (no towers/lines) give classification datasets
+            # genuine negatives, like the reference's 'pc_' windows
+            pylons = 0 if rng.uniform() < args.landscape_fraction else 2
+            npts = args.points_per_window
+            if args.point_jitter > 0:
+                # arbitrary-scale realism: per-window point counts vary lognormally
+                npts = max(256, int(npts * rng.lognormal(0.0, args.point_jitter)))
+            if args.scene == "hard":
+                pylons = 0 if pylons == 0 else int(rng.integers(2, 4))
+                parts.append(synthetic_scene_hard(rng, n_points=npts,
+                                                  extent_m=args.window_size,
+                                                  n_pylons=pylons))
+            else:
+                parts.append(synthetic_scene(rng, n_points=npts,
+                                             extent_m=args.window_size,
+                                             n_pylons=pylons))
+        # place windows side by side in raw coordinates
+        clouds = []
+        for w, sc in enumerate(parts):
+            c = sc.copy()
+            c[:, 10] = sc[:, 0] * args.window_size + 430000 + w * args.window_size
+            c[:, 11] = sc[:, 1] * args.window_size + 4590000 + i * args.window_size
+            clouds.append(c)
+        sc = np.concatenate(clouds)
+        n = len(sc)
+        if (sc[:, 3] == 2).any():
+            # hard scenes carry their own density-thinned ground returns
+            gx = gy = np.zeros(0)
+            n_g = 0
+        else:
+            # ground points at z=0 (class 2) so HAG has a terrain reference
+            n_g = n // 4
+            gx = rng.uniform(sc[:, 10].min(), sc[:, 10].max(), n_g)
+            gy = rng.uniform(sc[:, 11].min(), sc[:, 11].max(), n_g)
+        x = np.concatenate([sc[:, 10], gx])
+        y = np.concatenate([sc[:, 11], gy])
+        z = np.concatenate([sc[:, 12], np.zeros(n_g)])
+        if args.terrain_relief > 0:
+            # smooth random terrain under everything; the HAG stage must recover
+            # the height-above-ground that the labels were generated in
+            terr = make_terrain(rng, args.terrain_relief,
+                                args.window_size * max(args.windows_per_tile, 1))
+            z = z + terr(x - x.min(), y - y.min())
+        cloud = LasCloud(
+            x=x,
+            y=y,
+            z=z,
+            intensity=np.concatenate([sc[:, 4] * 5000, rng.uniform(0, 5000, n_g)]),
+            classification=np.concatenate([sc[:, 3], np.full(n_g, 2)]).astype(np.int64),
+            red=np.concatenate([sc[:, 5] * 65535, rng.uniform(0, 65535, n_g)]),
+            green=np.concatenate([sc[:, 6] * 65535, rng.uniform(0, 65535, n_g)]),
+            blue=np.concatenate([sc[:, 7] * 65535, rng.uniform(0, 65535, n_g)]),
+            nir=np.concatenate([sc[:, 8] * 65535, rng.uniform(0, 65535, n_g)]),
+        )
+        write_las(os.path.join(args.out_path, f"tile{i}.las"), cloud, point_format=8)
+    print(f"wrote {args.n_tiles} synthetic LAS tiles to {args.out_path}")
+    return 0
+
+
+def cmd_preprocess(args) -> int:
+    """LAS tiles → 13-column window clouds, ``kmeans_*`` artifacts and the
+    {train,val,test} split lists; exits 1 when no tile produced a window."""
+    from ampnet_tpu_torch.preproc.pipeline import PreprocessParams, run_pipeline
+    from ampnet_tpu_torch.preproc.splits import generate_split_lists
+
+    _refuse_unported([(args.geom_features, "--geom_features", FAMILIES)])
+    if args.assigner == "sinkhorn":  # on the card unless --device cpu: checked up front
+        from ampnet_tpu_torch.core.device import resolve_device
+
+        resolve_device(args.device)
+    os.makedirs(args.out_path, exist_ok=True)
+    tiles = sorted(glob.glob(os.path.join(args.in_path, "*.las")))
+    if not tiles:
+        print(f"no LAS tiles in {args.in_path}", file=sys.stderr)
+        return 1
+    params = PreprocessParams(
+        out_path=args.out_path, dataset=args.dataset, window_size=args.window_size,
+        max_z=args.max_z, min_points=args.min_points, n_points=args.n_points,
+        max_windows=args.max_windows, hag_cell=args.hag_cell,
+        artifact_format=args.artifact_format, assigner=args.assigner, device=args.device,
+    )
+    produced, errors = run_pipeline(tiles, params, workers=args.workers)
+    for e in errors:
+        # skip-and-continue robustness like the reference's imap_unordered
+        # pools (2_preprocessing_filter_norm.py:131-132)
+        print(e, file=sys.stderr)
+
+    # stage 4: split lists — geographic block JSONs (the reference's evaluation
+    # protocol, generate_train_test_lists.py:106-210) or a seeded random split
+    blocks = None
+    if args.blocks_json:
+        blocks = {}
+        for path in args.blocks_json:
+            with open(path) as f:
+                mapping = json.load(f)
+            for split, names in mapping.items():
+                blocks.setdefault(split, []).extend(names)
+    assigned = generate_split_lists(
+        produced, args.out_path, task="segmentation", blocks=blocks,
+        fractions={"train": 0.7, "val": 0.15, "test": 0.15}, seed=args.seed,
+    )
+    if blocks and assigned.get("unmatched"):
+        print(f"warning: {len(assigned['unmatched'])} windows matched no block in "
+              f"{args.blocks_json} and joined no split", file=sys.stderr)
+    msg = f"preprocessed {len(produced)} windows from {len(tiles)} tiles → {args.out_path}"
+    if errors:
+        msg += f" ({len(errors)} unreadable tiles skipped)"
+    print(msg)
+    if not produced:
+        print("no windows produced — every input tile failed", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_fps(args) -> int:
+    """Offline FPS subsampling of large clouds (data_proc/sample_fps.py:12-34)
+    by the native solver library."""
+    from ampnet_tpu_torch.data.io_utils import load_cloud, save_cloud
+    from ampnet_tpu_torch.native import fps_native
+
+    files = sorted(glob.glob(os.path.join(args.in_path, "*.pkl")))
+    os.makedirs(args.out_path, exist_ok=True)
+    for f in files:
+        pc = load_cloud(f)
+        if pc.shape[0] > args.n_points:
+            pc = pc[fps_native(pc[:, :3], args.n_points)]
+        save_cloud(os.path.join(args.out_path, os.path.basename(f)), pc)
+    print(f"fps-sampled {len(files)} clouds to <= {args.n_points} points → {args.out_path}")
+    return 0
+
+
 def _load_lists(path_list_files: str):
     from ampnet_tpu_torch.data.io_utils import read_split_list
 
@@ -300,7 +454,8 @@ def cmd_test(args) -> int:
 def cmd_infer(args) -> int:
     """Per-point predictions of every ``.pkl`` cloud in ``dataset_path``:
     ``<stem>_preds.npy`` (int32), and with ``--save_probs`` also
-    ``<stem>_probs.npy`` (float16) and ``<stem>_hist.png``."""
+    ``<stem>_probs.npy`` (float16) and ``<stem>_hist.png``. A folder of
+    ``.las`` tiles is labelled whole instead (``infer_las_tiles``)."""
     import numpy as np
 
     from ampnet_tpu_torch.core.device import resolve_device
@@ -310,13 +465,16 @@ def cmd_infer(args) -> int:
 
     _refuse_other_families(args)
     _check_views(args)
+    las_tiles = sorted(glob.glob(os.path.join(args.dataset_path, "*.las")))
+    if las_tiles and args.save_probs:
+        raise Refused("--save_probs is not supported in whole-tile LAS mode (the output "
+                      "is a classified LAS); run on .pkl clouds instead")
     _check_figures(args, ("save_probs",))
-    if glob.glob(os.path.join(args.dataset_path, "*.las")):
-        raise Refused(f"{args.dataset_path} holds .las tiles; whole-tile mode is not ported "
-                      f"yet: {WHOLE_TILE}")
     device = resolve_device(args.device)
     groups, _ = _restore_groups(args.model_checkpoint, device)
     inferencer = _make_seg_inferencer(groups, args, device, None)
+    if las_tiles:
+        return infer_las_tiles(inferencer, las_tiles, args)
     files = [os.path.basename(f)
              for f in sorted(glob.glob(os.path.join(args.dataset_path, "*.pkl")))]
     ds = InferenceCloudDataset(args.dataset_path, files)
@@ -342,6 +500,25 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def infer_las_tiles(inferencer, tiles, args) -> int:
+    """Whole-tile mode of ``infer``: each tile's ``<name>_classified.las`` and
+    one ``tile_metrics.json`` of every tile's metrics, under ``out_path``."""
+    from ampnet_tpu_torch.infer.full_tile import classify_las_file
+
+    os.makedirs(args.out_path, exist_ok=True)
+    results = {}
+    for t in tiles:
+        name = os.path.splitext(os.path.basename(t))[0]
+        results[name] = classify_las_file(
+            inferencer, t, os.path.join(args.out_path, name + "_classified.las"),
+            window_size=args.window_size, tta=args.tta, votes=args.tile_votes,
+        )
+    with open(os.path.join(args.out_path, "tile_metrics.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    print(f"classified {len(tiles)} LAS tiles → {args.out_path}")
+    return 0
+
+
 def cmd_export(args) -> int:
     """One checkpoint (a port directory or a ``.pth``) as a reference ``.pth``
     (utils/utils.py:422-438) with its number_of_points, batch_size and lr."""
@@ -355,6 +532,41 @@ def cmd_export(args) -> int:
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     save_reference_pth(flax_variables(model), args.out, meta=meta)
     print(f"exported {name} (attention) -> {args.out}")
+    return 0
+
+
+def cmd_demo(args) -> int:
+    """End-to-end on synthetic data, each stage through its own command:
+    synth → preprocess → train → test (prints ``test``'s summary JSON)."""
+    from ampnet_tpu_torch.core.device import resolve_device
+
+    _refuse_unported([
+        (args.arch != "attention", f"--arch {args.arch}", FAMILIES),
+        (args.geom_features, "--geom_features", FAMILIES),
+    ])
+    resolve_device(args.device)  # before any stage: the card unless --device cpu
+    base, dev = args.out_path, ["--device", args.device]
+    las, data, run = (os.path.join(base, d) for d in ("las", "data", "run"))
+    npts = str(args.number_of_points)
+    max_clusters = max(6, args.points_per_window // args.number_of_points + 1)
+    stages = [
+        ["synth", "--out_path", las, "--n_tiles", str(args.n_tiles), "--windows_per_tile", "3",
+         "--points_per_window", str(args.points_per_window), "--seed", "0"],
+        ["preprocess", "--in_path", las, "--out_path", data, "--dataset", "SYNTH",
+         "--min_points", "256", "--n_points", npts, "--max_windows", "5", "--seed", "0"],
+        ["train", data, "--path_list_files", data, "--out_path", run,
+         "--number_of_points", npts, "--number_of_windows", "5", "--batch_size", "2",
+         "--epochs", str(args.epochs), "--seed", "0", *dev],
+        ["test", data, "--path_list_files", data, "--out_path", run, "--model_checkpoint",
+         os.path.join(run, "checkpoints", "attention_segmentation_best"),
+         "--max_clusters", str(max_clusters), "--backend", args.backend, *dev],
+    ]
+    parser = build_parser()
+    for argv in stages:
+        stage = parser.parse_args(argv)
+        rc = stage.fn(stage)
+        if rc:
+            return rc
     return 0
 
 
@@ -385,6 +597,62 @@ def _add_view_options(s) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ampnet_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("synth", help="generate synthetic LAS tiles")
+    s.add_argument("--out_path", required=True)
+    s.add_argument("--n_tiles", type=int, default=4)
+    s.add_argument("--windows_per_tile", type=int, default=3)
+    s.add_argument("--points_per_window", type=int, default=8000)
+    s.add_argument("--window_size", type=float, default=100.0)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--scene", choices=["easy", "hard"], default="easy",
+                   help="hard: class imbalance, building/pole confusers, "
+                        "lines-through-canopy, density gradients + dropout holes, "
+                        "sensor noise")
+    s.add_argument("--terrain_relief", type=float, default=0.0,
+                   help="metres of smooth terrain relief under the scene "
+                        "(exercises the HAG stage; labels stay in HAG space)")
+    s.add_argument("--point_jitter", type=float, default=0.0,
+                   help="lognormal sigma on per-window point counts")
+    s.add_argument("--landscape_fraction", type=float, default=0.0,
+                   help="fraction of windows generated WITHOUT towers/power lines")
+    s.set_defaults(fn=cmd_synth)
+
+    s = sub.add_parser("preprocess", help="LAS tiles → windows → 13-col pkl + kmeans artifacts")
+    s.add_argument("--in_path", required=True)
+    s.add_argument("--out_path", required=True)
+    s.add_argument("--dataset", default="DATA")
+    s.add_argument("--window_size", type=float, default=100.0)
+    s.add_argument("--max_z", type=float, default=100.0)
+    s.add_argument("--min_points", type=int, default=1024)
+    s.add_argument("--n_points", type=int, default=2048)
+    s.add_argument("--max_windows", type=int, default=9)
+    s.add_argument("--hag_cell", type=float, default=2.0)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--artifact_format", choices=["npz", "pt"], default="npz",
+                   help="kmeans artifact format (.pt = reference-compatible torch)")
+    s.add_argument("--workers", type=int, default=1,
+                   help="host process-pool size over tiles (spawned workers)")
+    s.add_argument("--assigner", choices=["exact_mcf", "sinkhorn"], default="exact_mcf",
+                   help="balanced k-means assigner: exact_mcf = the native min-cost-flow "
+                        "solver on the host (exact KMeansConstrained semantics); "
+                        "sinkhorn = the port's balanced k-means on --device")
+    s.add_argument("--device", default="cuda",
+                   help="where --assigner sinkhorn runs: cuda (default) or cpu")
+    s.add_argument("--blocks_json", nargs="+", default=None,
+                   help="one or more {split: [block names]} JSONs; window names "
+                        "containing a block name join that split instead of the "
+                        "random split")
+    s.add_argument("--geom_features", action="store_true",
+                   help="not ported yet (refused)")
+    s.set_defaults(fn=cmd_preprocess)
+
+    s = sub.add_parser("fps", help="farthest-point-sample clouds to a fixed size "
+                                   "(data_proc/sample_fps.py)")
+    s.add_argument("--in_path", required=True)
+    s.add_argument("--out_path", required=True)
+    s.add_argument("--n_points", type=int, default=8192)
+    s.set_defaults(fn=cmd_fps)
 
     s = sub.add_parser("train", help="train the attention segmenter")
     s.add_argument("dataset_path", help="folder of kmeans_<name>.pt / .npz artifacts")
@@ -450,10 +718,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "boundary-vs-interior errors, worst clouds (needs matplotlib)")
     s.set_defaults(fn=cmd_test)
 
-    s = sub.add_parser("infer", help="label-free per-point predictions of .pkl clouds")
-    s.add_argument("dataset_path", help="folder of 13-column .pkl clouds")
+    s = sub.add_parser("infer", help="label-free per-point predictions of .pkl clouds; "
+                                     "with .las tiles in the folder, whole-tile LAS → LAS")
+    s.add_argument("dataset_path", help="folder of 13-column .pkl clouds or of .las tiles")
     _add_checkpoint_options(s)
     s.add_argument("--out_path", default="predictions")
+    s.add_argument("--window_size", type=float, default=100.0,
+                   help="footprint of a window in metres (whole-tile LAS mode)")
     _add_inference_options(s, "xla")
     s.add_argument("--save_probs", action="store_true",
                    help="also write <name>_probs.npy (float16 softmax) and a confidence "
@@ -489,6 +760,20 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--warmup_batches", default="1",
                    help="micro-batch cloud-counts to run per warmup size, e.g. 1,2,4")
     s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser("demo", help="synthetic end-to-end pipeline")
+    s.add_argument("--out_path", default="/tmp/ampnet_demo")
+    s.add_argument("--arch", default="attention", help="attention only for now")
+    s.add_argument("--n_tiles", type=int, default=3)
+    s.add_argument("--points_per_window", type=int, default=6000)
+    s.add_argument("--number_of_points", type=int, default=512)
+    s.add_argument("--epochs", type=int, default=3)
+    s.add_argument("--backend", choices=list(BACKENDS), default="xla",
+                   help="inference backend of the test stage")
+    s.add_argument("--geom_features", action="store_true", help="not ported yet (refused)")
+    s.add_argument("--device", default="cuda",
+                   help="where train and test run: cuda (default) or cpu")
+    s.set_defaults(fn=cmd_demo)
     return p
 
 

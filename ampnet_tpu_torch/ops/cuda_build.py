@@ -1,10 +1,16 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's native sources at first use and load them with ctypes.
 
 Each ``ampnet_tpu_torch/csrc/<name>.cu`` has a plain C interface and is built
-on its own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+on its own by ``nvcc`` for Hopper (``sm_90a``); each host ``csrc/<name>.cc``
+(the balanced-assignment solver) is built by ``g++`` with the JAX package's
+Makefile flags (``HOST_FLAGS``). Either becomes a shared library under
 ``ampnet_tpu_torch/build/`` (listed in ``.gitignore``), named by the hash of
-its source and flags, so an edited source never loads a stale build. The
-build needs only the checkout and the CUDA toolkit; nothing is downloaded.
+its source and flags, so an edited source never loads a stale build; a host
+build's name also hashes the target ``g++`` resolves ``-march=native`` to, so
+a build directory copied to another machine is rebuilt there. The build
+writes a temporary file and renames it into place, so processes that build
+at the same time (``preprocess --workers``) never load half a file. It needs
+only the checkout and the toolchain; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -16,13 +22,16 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# ampnet_tpu/native/Makefile's flags: others may sum the costs in another
+# order and break the solver's ties otherwise
+HOST_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared"]
 
 _lock = threading.Lock()  # guards the two maps below
 _name_locks: Dict[str, threading.Lock] = {}
@@ -38,33 +47,64 @@ def nvcc_path() -> str:
                        "needed to build the port's kernels")
 
 
-def build(src: Path) -> Path:
-    """The shared library built from the CUDA source ``src`` under ``BUILD``
-    (built unless a build of the same source and flags is there)."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+def gxx_path() -> str:
+    cand = shutil.which(os.environ.get("CXX", "g++"))
+    if not cand:
+        raise RuntimeError("g++ not found on PATH (or $CXX): it builds the port's host "
+                           "solver (csrc/balanced_assign.cc)")
+    return cand
+
+
+def _host_target(gxx: str) -> bytes:
+    """What ``-march=native`` resolves to on this machine (the enabled
+    target options), part of a host build's name."""
+    proc = subprocess.run([gxx, "-march=native", "-Q", "--help=target"],
+                          capture_output=True)
+    return proc.stdout
+
+
+def _compile(src: Path, cmd: List[str], flags: List[str], salt: bytes = b"") -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode() + salt).hexdigest()[:16]
     out = BUILD / f"lib{src.stem}-{digest}.so"
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([nvcc_path(), *FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([*cmd, *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed for {src}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 
+def build(src: Path) -> Path:
+    """The shared library built from the CUDA source ``src`` under ``BUILD``
+    (built unless a build of the same source and flags is there)."""
+    return _compile(src, [nvcc_path()], FLAGS)
+
+
+def build_host(src: Path) -> Path:
+    """The shared library built from the C++ source ``src`` by ``g++`` with
+    ``HOST_FLAGS`` (built unless a build of the same source, flags and
+    target is there)."""
+    gxx = gxx_path()
+    return _compile(src, [gxx], HOST_FLAGS, salt=_host_target(gxx))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu`` (built on first call). Two
-    sources build at the same time; one source builds once."""
+    """The built library for ``csrc/<name>.cu`` (by ``nvcc``) or
+    ``csrc/<name>.cc`` (by ``g++``), built on first call. Two sources build
+    at the same time; one source builds once per process."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(build(CSRC / f"{name}.cu")))
+            host = CSRC / f"{name}.cc"
+            path = build_host(host) if host.exists() else build(CSRC / f"{name}.cu")
+            lib = ctypes.CDLL(str(path))
             with _lock:
                 _libs[name] = lib
         return _libs[name]
-

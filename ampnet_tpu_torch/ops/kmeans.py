@@ -168,3 +168,8 @@ def num_tiles_test(n: int, n_points: int, max_clusters: int = 18) -> int:
     if n < 2 * n_points:
         return 1
     return min(n // n_points, max_clusters)
+
+
+def num_tiles_train(n: int, n_points: int, max_clusters: int = 9) -> int:
+    """k = ceil(N / n_points), at least 1, capped (3_kmeans.py:54-57)."""
+    return min(max(-(-n // n_points), 1), max_clusters)

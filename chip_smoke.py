@@ -10,8 +10,9 @@ the run (non-zero exit, no result line) when it does not hold:
 
 1. card   -- the ``nvidia-smi`` name and power limit line;
 2. build  -- ``nvcc`` builds the serving path's kernels (``fused_mlp``,
-   ``quantized_mlp``) from ``ampnet_tpu_torch/csrc`` for ``sm_90a``, one
-   process each, all started together;
+   ``quantized_mlp``) from ``ampnet_tpu_torch/csrc`` for ``sm_90a``, and
+   ``g++`` the host solver (``balanced_assign.cc``), one process each, all
+   started together;
 3. kernels -- each kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it (and at the bench geometry, padded
    or prime window counts, ``relu_last=False`` and, for the int8 chain, an
@@ -66,7 +67,27 @@ the run (non-zero exit, no result line) when it does not hold:
    The launch counters show each run's kernels per bucket forward (fused 4,
    the stacked pair 8, int8 2 + 2); the ``eval:`` line prints each test's
    mIoU and points/s beside the card;
-8. results -- one ``{"kernels": [...]}`` line, then as the last line
+8. tiles -- the host data stages and whole-tile inference at full width,
+   each through ``cli.main.main``: (a) ``synth`` of 2 LAS tiles of 9
+   windows x 50,000 points on 5 m of terrain (with synth's ground returns,
+   about 1.1 M points); (b) ``preprocess`` (n_points 2048, max_windows 9,
+   the native min-cost-flow solver) with ``--workers 1`` and ``--workers
+   2``, whose outputs must be equal, and ``--assigner sinkhorn --device
+   cuda`` on one tile, every window exactly 2048 points; (c) one window's
+   Sinkhorn assignment on the card and on the CPU from one start (exact
+   sizes, agreement >= 0.999), and the native MCF's cost <= the plain
+   greedy's on its cost matrix; (d) the native FPS, naive and grid, equal to
+   the torch FPS on the card on a window of each tile, and ``fps`` over
+   every window; (e) ``infer`` of both tiles with phase 6's checkpoint under
+   ``--backend fused`` and ``--backend int8``: labels equal ``predict_many``
+   on the same windows and seeds, each classified LAS carries them at every
+   unfiltered point, ``tile_metrics.json`` holds both tiles, launches 4 and
+   2 + 2 per bucket forward; the fused run once more warm and traced; (f)
+   ``demo --backend fused`` on the card at the verify recipe: exit 0, its
+   summary JSON, 4 launches per bucket forward of its test. The ``data:``
+   line prints every time, points/s, and a warm tile's host stages (read,
+   HAG, split, filter) against its ``predict_many``;
+9. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -90,6 +111,7 @@ import torch
 
 SEED = 0
 KERNEL_SOURCES = ("fused_mlp", "quantized_mlp")  # ampnet_tpu_torch/csrc/<name>.cu
+HOST_SOURCES = ("balanced_assign",)  # ampnet_tpu_torch/csrc/<name>.cc, built by g++
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 and
 # int8 on the tensor cores, and HBM3
 FP32_PEAK_FLOPS = 67e12
@@ -1369,14 +1391,13 @@ def eval_cli(run, argv):
         launches = {name: fn.launches for name, fn in wrappers.items()}  # ... and ends here
     if rc != 0:
         raise RuntimeError(f"{' '.join(argv[:2])} exited {rc}: {buf.getvalue()[-2000:]}")
-    for name, per in EVAL_RUNS[run].items():
+    for name, per in {**EVAL_RUNS, **TILE_RUNS}[run].items():
         if launches[name] != per * rec["forwards"]:
             raise RuntimeError(f"{run}: {name} launched {launches[name]} times for "
                                f"{rec['forwards']} bucket forwards; want {per} each")
     _say(f"  {run}: exit 0 in {wall:.2f} s; {rec['forwards']} bucket forwards, ensemble "
          f"{sorted(rec['ensembles'])}; launches " + json.dumps(launches))
-    text = buf.getvalue()
-    summary = json.loads(text[text.index("{"): text.rindex("}") + 1]) if argv[0] == "test" else None
+    summary = last_json(buf.getvalue()) if argv[0] in ("test", "demo") else None
     return summary, launches, rec, wall
 
 
@@ -1519,9 +1540,271 @@ def evaluate_phase(ckpt, dev, card, work) -> dict:
     return {tag: r[1] for tag, r in out.items()}
 
 
+# phase 8: 2 tiles of 9 windows of 50,000 points (100 m x 100 m each) on 5 m of
+# terrain, plus the ground returns synth adds; the demo at the verify recipe
+TILES, TILE_WINDOWS, TILE_WINDOW_POINTS, TERRAIN_RELIEF = 2, 9, 50_000, 5.0
+DEMO_ARGS = ("--epochs", "2", "--n_tiles", "3", "--points_per_window", "5000",
+             "--number_of_points", "256")
+FPS_SAMPLES = 8192  # the fps command's default
+# kernel launches per bucket forward of each phase 8 run
+TILE_RUNS = {
+    "tile_infer_fused": LAUNCHES_PER_FORWARD["fused"],
+    "tile_infer_int8": LAUNCHES_PER_FORWARD["int8"],
+    "demo_test": LAUNCHES_PER_FORWARD["fused"],
+}
+
+
+def last_json(text: str) -> dict:
+    """The last (indented) JSON object a command printed."""
+    start = text.rfind("\n{")
+    return json.loads(text[start + 1 if start >= 0 else text.index("{"):])
+
+
+def quiet_cli(argv) -> float:
+    """One command line through ``cli.main.main`` (its output swallowed) →
+    wall seconds; it must exit 0."""
+    from ampnet_tpu_torch.cli.main import main as cli_main
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv[:1])} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def same_outputs(dir_a, dir_b) -> int:
+    """Two preprocess outputs hold the same files, clouds equal as arrays and
+    split lists as text → the count of files."""
+    from ampnet_tpu_torch.data.io_utils import load_cloud
+
+    files = sorted(os.listdir(dir_a))
+    if files != sorted(os.listdir(dir_b)):
+        raise RuntimeError(f"{dir_a} and {dir_b} hold other files")
+    for f in files:
+        a, b = os.path.join(dir_a, f), os.path.join(dir_b, f)
+        same = (open(a).read() == open(b).read() if f.endswith(".txt")
+                else np.array_equal(load_cloud(a), load_cloud(b)))
+        if not same:
+            raise RuntimeError(f"{f} differs between {dir_a} and {dir_b}")
+    return len(files)
+
+
+def host_solver_checks(pre_dir, dev) -> dict:
+    """Phase 8 (c)-(d) on the preprocessed windows: the Sinkhorn assignment on
+    the card and on the CPU from one start (exact sizes, agreement), the
+    native FPS (naive and grid) against the torch FPS on the card, and the
+    native MCF's cost against the plain greedy's on one window."""
+    from ampnet_tpu_torch.data.io_utils import load_cloud
+    from ampnet_tpu_torch.native import (
+        assign_plain,
+        balanced_assign,
+        balanced_kmeans_native,
+        fps_native,
+    )
+    from ampnet_tpu_torch.ops.kmeans import num_tiles_train
+    from ampnet_tpu_torch.ops.sampling import farthest_point_sampling
+    from ampnet_tpu_torch.preproc.tiling import KMEANS_COLS, sinkhorn_assign
+
+    out = {}
+    clouds = sorted(f for f in os.listdir(pre_dir)
+                    if f.endswith(".pkl") and not f.startswith("kmeans_"))
+    pc = load_cloud(os.path.join(pre_dir, clouds[0]))
+    npts = min(2048, pc.shape[0] // 2)
+    k = num_tiles_train(pc.shape[0], npts, 9)
+    feats = np.ascontiguousarray(pc[: k * npts, list(KMEANS_COLS)], np.float32)
+    init = np.random.default_rng(SEED).permutation(k * npts)[:k]
+    t0 = time.perf_counter()
+    on_card = sinkhorn_assign(feats, k, npts, SEED, dev, init_idx=init)
+    out["sinkhorn_card_ms"] = (time.perf_counter() - t0) * 1e3
+    on_cpu = sinkhorn_assign(feats, k, npts, SEED, "cpu", init_idx=init)
+    for where, a in (("card", on_card), ("cpu", on_cpu)):
+        sizes = np.bincount(a, minlength=k)
+        if not (sizes == npts).all():
+            raise RuntimeError(f"sinkhorn on the {where}: window sizes {sizes.tolist()}")
+    out["sinkhorn_card_cpu_agreement"] = float((on_card == on_cpu).mean())
+    if not out["sinkhorn_card_cpu_agreement"] >= 0.999:
+        raise RuntimeError(f"sinkhorn card against CPU from one start: "
+                           f"{out['sinkhorn_card_cpu_agreement']}")
+    # the native FPS against the torch FPS on the card, one window of each tile
+    fps_ms = {"native_naive": 0.0, "native_grid": 0.0, "torch_card": 0.0}
+    for name in (clouds[0], clouds[-1]):
+        xyz = load_cloud(os.path.join(pre_dir, name))[:, :3]
+        s = min(FPS_SAMPLES, xyz.shape[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = farthest_point_sampling(torch.from_numpy(xyz).to(dev), s).cpu().numpy()
+        fps_ms["torch_card"] += (time.perf_counter() - t0) * 1e3
+        for method in ("naive", "grid"):
+            t0 = time.perf_counter()
+            got = fps_native(xyz, s, method=method)
+            fps_ms[f"native_{method}"] += (time.perf_counter() - t0) * 1e3
+            if not np.array_equal(got, want):
+                first = int(np.flatnonzero(got != want)[0])
+                raise RuntimeError(f"{name}: native FPS ({method}) differs from the torch "
+                                   f"FPS on the card from sample {first} of {s}")
+    out["fps_ms_two_windows"] = fps_ms
+    # one window's cost matrix: the exact solver against the plain greedy
+    _, cents = balanced_kmeans_native(feats, k, np.full(k, npts, np.int32), seed=SEED)
+    cost = ((feats[:, None, :] - cents[None]) ** 2).sum(-1).astype(np.float32)
+    caps = np.full(k, npts, np.int32)
+    t0 = time.perf_counter()
+    exact = balanced_assign(cost, caps)
+    out["mcf_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = assign_plain(cost, caps)
+    out["greedy_ms"] = (time.perf_counter() - t0) * 1e3
+    rows = np.arange(len(feats))
+    for tag, a in (("mcf", exact), ("greedy", plain)):
+        if not (np.bincount(a, minlength=k) == npts).all():
+            raise RuntimeError(f"{tag}: window sizes not exact")
+        out[f"{tag}_cost"] = float(cost[rows, a].astype(np.float64).sum())
+    if not out["mcf_cost"] <= out["greedy_cost"] + 1e-3:
+        raise RuntimeError(f"MCF cost {out['mcf_cost']} above the greedy's {out['greedy_cost']}")
+    _say(f"  (c-d) host solver on [{k * npts}, {k}]: sinkhorn card = cpu on "
+         f"{out['sinkhorn_card_cpu_agreement']}, native FPS = torch FPS on 2 windows, "
+         f"MCF cost {out['mcf_cost']:.4f} <= greedy {out['greedy_cost']:.4f}")
+    return out
+
+
+def check_tile_run(run, tiles, out_dir, rec, ckpt, backend, dev) -> None:
+    """Phase 8 (e): the labels ``infer`` recorded equal ``predict_many`` on
+    the same windows and seeds; each classified LAS carries them at every
+    unfiltered point and the input's class elsewhere; tile_metrics.json
+    holds every tile."""
+    from ampnet_tpu_torch.core.checkpoint import load_model
+    from ampnet_tpu_torch.data.las_io import read_las
+    from ampnet_tpu_torch.infer.full_tile import SEG_TO_LAS, tile_windows
+    from ampnet_tpu_torch.infer.tiled import TiledInferencer
+
+    cfg, model = load_model(ckpt, dev)
+    direct = TiledInferencer(model, cfg, backend=backend, device=dev)
+    recorded = list(rec["labels"])
+    with open(os.path.join(out_dir, "tile_metrics.json")) as f:
+        metrics = json.load(f)
+    for path in tiles:
+        name = os.path.splitext(os.path.basename(path))[0]
+        las = read_las(path)
+        feats, kept, _ = tile_windows(las)
+        want = direct.predict_many(feats, seeds=list(range(len(feats))))
+        got, recorded = recorded[: len(feats)], recorded[len(feats):]
+        if len(got) != len(want) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"{run}: {name}'s labels differ from predict_many on its "
+                               f"windows and seeds")
+        out = read_las(os.path.join(out_dir, f"{name}_classified.las"))
+        expect = las.classification.astype(np.int64).copy()
+        for idx, labels in zip(kept, want):
+            expect[idx] = SEG_TO_LAS[labels]
+        if len(out) != len(las) or not np.array_equal(out.classification, expect):
+            raise RuntimeError(f"{run}: {name}_classified.las does not carry the labels")
+        m = metrics.get(name, {})
+        if m.get("points_total") != len(las) or not np.isfinite(m.get("miou", np.nan)):
+            raise RuntimeError(f"{run}: tile_metrics.json for {name}: {m}")
+    if recorded:
+        raise RuntimeError(f"{run}: {len(recorded)} more windows were predicted than tiled")
+
+
+def tiles_phase(ckpt, dev, card, work, windows=TILE_WINDOWS, points=TILE_WINDOW_POINTS,
+                demo_args=DEMO_ARGS) -> dict:
+    """Phase 8: (a) ``synth`` of TILES LAS tiles; (b) ``preprocess`` under
+    ``exact_mcf`` with 1 and 2 workers, equal, and under ``--assigner
+    sinkhorn`` on the card for one tile, every window exactly n_points; (c-d)
+    ``host_solver_checks`` and ``fps``; (e) whole-tile ``infer`` of both
+    tiles with phase 6's checkpoint under ``fused`` and ``int8``
+    (``check_tile_run``), the fused one once more warm and traced; (f)
+    ``demo`` on the card → each run's launches of each kernel. Prints the
+    ``data:`` line."""
+    from ampnet_tpu_torch.core.checkpoint import load_model
+    from ampnet_tpu_torch.data.io_utils import load_cloud
+    from ampnet_tpu_torch.data.las_io import read_las
+    from ampnet_tpu_torch.infer.full_tile import tile_windows
+    from ampnet_tpu_torch.infer.tiled import TiledInferencer
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "tiles")
+    las_dir, one_dir = os.path.join(root, "las"), os.path.join(root, "one_tile")
+    data = {"card": card}
+    data["synth_s"] = quiet_cli(["synth", "--out_path", las_dir, "--n_tiles", str(TILES),
+                                 "--windows_per_tile", str(windows), "--points_per_window",
+                                 str(points), "--terrain_relief", str(TERRAIN_RELIEF),
+                                 "--seed", str(SEED)])
+    tiles = sorted(os.path.join(las_dir, f) for f in os.listdir(las_dir))
+    n_las = sum(len(read_las(t)) for t in tiles)
+    data["las_points"], data["las_mb"] = n_las, sum(os.path.getsize(t) for t in tiles) / 2**20
+    _say(f"  (a) synth: {len(tiles)} tiles, {n_las} points, {data['las_mb']:.1f} MiB in "
+         f"{data['synth_s']:.2f} s")
+    # (b) preprocess, serial and pooled, then sinkhorn on the card for one tile
+    pre = {w: os.path.join(root, f"pre_w{w}") for w in (1, 2)}
+    for w, out in pre.items():
+        data[f"preprocess_w{w}_s"] = quiet_cli(["preprocess", "--in_path", las_dir, "--out_path",
+                                                out, "--workers", str(w)])
+    n_files = same_outputs(pre[1], pre[2])
+    kmeans = [f for f in os.listdir(pre[1]) if f.startswith("kmeans_")]
+    for f in kmeans:
+        shape = load_cloud(os.path.join(pre[1], f)).shape
+        if shape[:2] != (2048, 13):
+            raise RuntimeError(f"{f}: windowed shape {shape}")
+    os.makedirs(one_dir)
+    os.symlink(tiles[0], os.path.join(one_dir, os.path.basename(tiles[0])))
+    sink = os.path.join(root, "pre_sinkhorn")
+    data["preprocess_sinkhorn_one_tile_s"] = quiet_cli(
+        ["preprocess", "--in_path", one_dir, "--out_path", sink, "--assigner", "sinkhorn",
+         "--device", str(dev)])
+    for f in os.listdir(sink):
+        if f.startswith("kmeans_") and load_cloud(os.path.join(sink, f)).shape[0] != 2048:
+            raise RuntimeError(f"sinkhorn {f}: windows of other than 2048 points")
+    data["windows"] = len(kmeans)
+    data["preprocess_s_per_tile"] = data["preprocess_w1_s"] / len(tiles)
+    _say(f"  (b) preprocess: {len(kmeans)} windows, workers 1 = workers 2 over {n_files} "
+         f"files; sinkhorn on the card: every window 2048 points")
+    # (c-d) the host solver, and the fps command over every window
+    data["host_solver"] = host_solver_checks(pre[1], dev)
+    data["fps_s"] = quiet_cli(["fps", "--in_path", pre[1], "--out_path",
+                               os.path.join(root, "fps"), "--n_points", str(FPS_SAMPLES)])
+    # (e) whole-tile infer under fused and int8
+    launches, runs = {}, {}
+    for backend in ("fused", "int8"):
+        run, out = f"tile_infer_{backend}", os.path.join(root, f"infer_{backend}")
+        argv = ["infer", las_dir, "--model_checkpoint", ckpt, "--backend", backend,
+                "--device", str(dev), "--out_path", out]
+        _, launches[run], rec, wall = eval_cli(run, argv)
+        check_tile_run(run, tiles, out, rec, ckpt, backend, dev)
+        runs[run] = {"wall_s": wall, "points_per_sec": n_las / wall,
+                     "bucket_forwards": rec["forwards"]}
+        if backend == "fused":
+            runs[run]["traced_warm"] = traced_cli([*argv[:-1], out + "_traced"])
+    data.update(runs)
+    # where a warm tile's time goes: the host stages against predict_many
+    cfg, model = load_model(ckpt, dev)
+    direct = TiledInferencer(model, cfg, backend="fused", device=dev)
+    t0 = time.perf_counter()
+    las = read_las(tiles[0], mmap=True)
+    feats, _, _ = tile_windows(las)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct.predict_many(feats, seeds=list(range(len(feats))))
+    data["one_tile_warm"] = {"points": len(las), "windows": len(feats),
+                             "read_hag_split_filter_ms": host_ms,
+                             "predict_many_ms": (time.perf_counter() - t0) * 1e3}
+    _say("  (e) infer: labels = predict_many, classified LAS and tile_metrics.json checked")
+    # (f) the demo on the card
+    demo = os.path.join(root, "demo")
+    summary, launches["demo_test"], _, data["demo_s"] = eval_cli(
+        "demo_test", ["demo", "--out_path", demo, *demo_args, "--backend", "fused",
+                      "--device", str(dev)])
+    if not np.isfinite(summary["miou"]) or summary["n_clouds"] < 1:
+        raise RuntimeError(f"demo: summary {summary}")
+    data["demo_summary"] = {k: summary[k] for k in ("miou", "oa", "n_clouds",
+                                                    "points_per_sec")}
+    _say("data: " + json.dumps(data))
+    _say(f"  tiles phase: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def build_phase():
-    """Phase 2: each kernel source built by its own ``nvcc``, all started
-    together, and loaded."""
+    """Phase 2: each kernel source built by its own ``nvcc``, and the host
+    solver by ``g++``, all started together, and loaded."""
     from ampnet_tpu_torch.ops import cuda_build
 
     def build(name):
@@ -1529,9 +1812,10 @@ def build_phase():
         cuda_build.load(name)
         return time.perf_counter() - t0
 
+    sources = (*KERNEL_SOURCES, *HOST_SOURCES)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
-        took = dict(zip(KERNEL_SOURCES, pool.map(build, KERNEL_SOURCES)))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        took = dict(zip(sources, pool.map(build, sources)))
     _say("  built and loaded " + ", ".join(f"{n} in {t:.2f} s" for n, t in took.items())
          + f" ({time.perf_counter() - t0:.2f} s in all, in parallel)")
 
@@ -1549,36 +1833,39 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     _say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    _say("[1/8] card")
+    _say("[1/9] card")
     card = card_line()
     _say(card)
 
-    _say("[2/8] build")
+    _say("[2/9] build")
     build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
-    _say("[3/8] kernels against their plain versions")
+    _say("[3/9] kernels against their plain versions")
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/8] model: fused and int8 against the module forward")
+    _say("[4/9] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
-    _say("[5/8] serve")
+    _say("[5/9] serve")
     runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
     cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as work:
-        _say("[6/8] train")
+        _say("[6/9] train")
         train_launches, ckpt = train_phase(dev, card, work)
 
-        _say("[7/8] evaluate")
+        _say("[7/9] evaluate")
         eval_launches = evaluate_phase(ckpt, dev, card, work)
 
-    _say("[8/8] results")
+        _say("[8/9] tiles: host data stages, whole-tile infer, demo")
+        eval_launches.update(tiles_phase(ckpt, dev, card, work))
+
+    _say("[9/9] results")
     # launches only where the serving runs counted them: each kernel in both
     # runs, and each serving chain once per bucket forward that ran it (its M
     # there is 18 x clouds in the bucket); the other cases are shapes the
@@ -1588,8 +1875,8 @@ def main() -> int:
         total["launches_by_run"] = {backend: counts[name] for backend, (counts, _) in runs.items()}
         if name == "fused_mlp_chain":  # the trained checkpoint, served under fused
             total["launches_by_run"]["train_serve"] = train_launches
-        for run, counts in eval_launches.items():  # the evaluate runs that launch it
-            if EVAL_RUNS[run][name]:
+        for run, counts in eval_launches.items():  # the phase 7-8 runs that launch it
+            if {**EVAL_RUNS, **TILE_RUNS}[run][name]:
                 total["launches_by_run"][run] = counts[name]
         total["launches"] = sum(total["launches_by_run"].values())
     tnets = ("serve:input_tnet", "serve:feature_tnet")  # the T-Nets run under both backends

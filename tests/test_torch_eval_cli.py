@@ -110,8 +110,8 @@ def test_cli_infer_refuses_before_any_work(tmp_path, capsys):
                  "--tile_votes", "0"]) == 1
     assert "--tile_votes must be >= 1" in capsys.readouterr().err
     (tmp_path / "tile0.las").write_bytes(b"LASF")
-    assert main(["infer", str(tmp_path), "--model_checkpoint", missing]) == 1
-    assert "item 3b" in capsys.readouterr().err
+    assert main(["infer", str(tmp_path), "--model_checkpoint", missing, "--save_probs"]) == 1
+    assert "not supported in whole-tile LAS mode" in capsys.readouterr().err
     assert main(["test", str(tmp_path), "--model_checkpoint", missing,
                  "--path_list_files", str(tmp_path), "--device", "cpu"]) == 1
     assert "not found" in capsys.readouterr().err
