@@ -6,21 +6,29 @@ unless ``--device cpu``. Counterparts of ``ampnet_tpu/cli/main.py``:
                 artifacts + split lists (``cmd_preprocess``; host stages,
                 the native min-cost-flow solver by default)
     fps         farthest-point subsampling of .pkl clouds (``cmd_fps``)
-    train       train the attention segmenter (``cmd_train``): best-val checkpoints
-                under ``<out_path>/checkpoints/attention_segmentation_best``
-    test        tiled evaluation with the IoU CSV (``cmd_test``)
+    train       train any ``--arch`` of the factory for ``--task`` segmentation or
+                classification (``cmd_train``): best-val checkpoints under
+                ``<out_path>/checkpoints/<arch>_<task>_best``
+    test        tiled evaluation with the IoU CSV, or the classification CSVs
+                (``cmd_test``)
     infer       label-free per-point predictions of ``.pkl`` clouds, or whole
                 ``.las`` tiles labelled into classified LAS files (``cmd_infer``)
     export      a checkpoint as a reference ``.pth`` (``cmd_export``)
-    serve       a long-lived HTTP server (``cmd_serve``)
+    serve       a long-lived HTTP server of per-point labels, or of one label
+                per cloud under ``--task classification`` (``cmd_serve``)
     demo        synth → preprocess → train → test on synthetic tiles (``cmd_demo``)
 
 ``test``, ``infer`` and ``serve`` take a reference ``.pth`` or one of the
 port's checkpoint directories, or several of them comma-separated: members of
 one signature (parameter names and shapes, and ``n_points``) stack in one
 ``TiledInferencer``, several groups average in an ``EnsembleInferencer``.
-Options of the JAX command line that the port does not cover yet exit 1 with
-the ROADMAP.md item that owns them.
+The windowed families (attention, gru) tile a cloud into windows; baseline,
+classic and pointnet2 evaluate the whole cloud as one window (k = 1). Only
+the attention segmenter runs under the non-``xla`` backends, as in the JAX
+package: the others are refused there, except that ``serve``'s default
+``folded`` falls back to ``xla`` and says so. Options of the JAX command line
+that the port does not cover yet exit 1 with the ROADMAP.md item that owns
+them.
 """
 
 from __future__ import annotations
@@ -33,9 +41,11 @@ import sys
 
 from ampnet_tpu_torch.models.backends import BACKENDS
 
-FAMILIES = "ROADMAP.md Queue 1, item 4 (other families and contexts)"
+GEOMETRY = "ROADMAP.md Queue 1, item 4b (geometry and distillation)"
 PARALLEL = "ROADMAP.md Queue 1, item 5 (parallel)"
 TRAIN_REST = "ROADMAP.md Queue 1, item 7 (training options)"
+NON_XLA = ("non-xla backends (folded/bf16/fused/int8) support the attention segmenter only; "
+           "use --backend xla")
 
 
 class Refused(ValueError):
@@ -49,29 +59,38 @@ def _refuse_unported(checks) -> None:
             raise Refused(f"{flag} is not ported yet: {item}")
 
 
-def _restore_reference(path: str, device):
-    """(cfg, model) from a reference ``.pth``, with the hyperparameters the
-    reference tester reads from the checkpoint (number_of_points) and the
-    geometry read from the weights (point_dim, global_feat)."""
+def _restore_reference(path: str, device, arch: str, task: str):
+    """(cfg, model) from a reference ``.pth`` (attention or GRU segmenter),
+    with the hyperparameters the reference tester reads from the checkpoint
+    (number_of_points) and the geometry read from the weights (point_dim,
+    global_feat, gru_hidden)."""
     from ampnet_tpu_torch.core.config import AMPNetConfig, DataConfig, ModelConfig
     from ampnet_tpu_torch.core.weights import load_flax_variables, load_reference_pth
-    from ampnet_tpu_torch.models.amp import AMPNetSegmenter
+    from ampnet_tpu_torch.models.factory import WINDOWED, build_model
 
+    if task != "segmentation" or arch not in WINDOWED:
+        raise Refused("torch checkpoint import supports the attention/gru segmenters")
     variables, meta = load_reference_pth(path)
+    if meta["arch"] != arch:
+        print(f"checkpoint is a {meta['arch']} model; using --arch {meta['arch']}",
+              file=sys.stderr)
     cfg = AMPNetConfig(model=ModelConfig(
         context=meta["arch"], point_dim=meta["point_dim"], global_feat=meta["global_feat"],
+        gru_hidden=meta.get("gru_hidden", 64),
     ))
     if meta.get("number_of_points"):
         cfg = cfg.replace(data=DataConfig(n_points=int(meta["number_of_points"])))
-    model = AMPNetSegmenter(cfg.model, num_features=cfg.data.num_features)
+    model = build_model(cfg, meta["arch"])
     load_flax_variables(model, variables)
     return cfg, model.to(device)
 
 
-def _restore_model(path: str, device):
+def _restore_model(path: str, device, arch: str = "attention", task: str = "segmentation"):
     """(cfg, model, name) from one checkpoint: a port checkpoint directory
-    (``meta.json`` + ``state.pt``) or a reference ``.pth``."""
-    from ampnet_tpu_torch.core.checkpoint import is_checkpoint_dir, load_model
+    (``meta.json`` + ``state.pt``; its recorded arch and task win over
+    ``--arch``, and a task other than ``task`` is refused) or a reference
+    ``.pth``."""
+    from ampnet_tpu_torch.core.checkpoint import is_checkpoint_dir, load_model, read_meta
 
     if not os.path.exists(path):
         raise Refused(f"checkpoint not found: {path}")
@@ -79,21 +98,28 @@ def _restore_model(path: str, device):
         if not is_checkpoint_dir(path):
             raise Refused(f"{path} is not one of the port's checkpoint directories "
                           "(meta.json + state.pt); JAX orbax directories cannot be read")
+        recorded = read_meta(path).get("task", "segmentation")
+        if recorded != task:
+            raise Refused(f"{path} is a {recorded} checkpoint; this command wants --task {task}")
         cfg, model = load_model(path, device)
+        if arch != "attention" and arch != cfg.model.context:
+            print(f"checkpoint records arch {cfg.model.context!r}; ignoring --arch {arch!r}",
+                  file=sys.stderr)
     elif path.endswith((".pth", ".pt")):
-        cfg, model = _restore_reference(path, device)
+        cfg, model = _restore_reference(path, device, arch, task)
     else:
         raise Refused(f"{path}: want a reference .pth or a checkpoint directory")
     return cfg, model, os.path.basename(os.path.normpath(path))
 
 
-def _restore_groups(spec: str, device):
+def _restore_groups(args, device, task: str = "segmentation"):
     """A comma-separated ``--model_checkpoint`` → ([(cfg, [model, ...]), ...],
     name). Members group by signature: ordered (state_dict key, shape) pairs
     and ``n_points``, what stacking on the device needs."""
     from ampnet_tpu_torch.infer.tiled import model_signature
 
-    restored = [_restore_model(p, device) for p in spec.split(",") if p]
+    restored = [_restore_model(p, device, args.arch, task)
+                for p in args.model_checkpoint.split(",") if p]
     if not restored:
         raise Refused("--model_checkpoint names no checkpoint")
     groups = {}
@@ -106,30 +132,35 @@ def _restore_groups(spec: str, device):
     return groups, "+".join(name for *_, name in restored)
 
 
-def _make_seg_inferencer(groups, args, device, max_clusters):
+def _check_backend(groups, backend: str) -> None:
+    """The non-``xla`` backends evaluate attention parameters only."""
+    if backend != "xla" and any(cfg.model.context != "attention" for cfg, _ in groups):
+        raise Refused(NON_XLA)
+
+
+def _make_seg_inferencer(groups, args, device, max_clusters, backend: str):
     """One TiledInferencer per group (its members stacked), wrapped in an
-    EnsembleInferencer when there are several groups."""
+    EnsembleInferencer when there are several groups. The windowed families
+    tile with ``max_clusters``; baseline, classic and pointnet2 evaluate the
+    WHOLE cloud (the reference baseline tester feeds the full cloud at batch
+    1, test_segmentation.py): one window, k = 1, replicate-padded to its
+    capacity and the duplicates dropped on output."""
     from ampnet_tpu_torch.infer.tiled import EnsembleInferencer, TiledInferencer
+    from ampnet_tpu_torch.models.factory import WINDOWED
 
     members = [
         TiledInferencer(models if len(models) > 1 else models[0], cfg,
-                        max_clusters=max_clusters, backend=args.backend, tiler=args.tiler,
+                        max_clusters=max_clusters if cfg.model.context in WINDOWED else 1,
+                        backend=backend, tiler=args.tiler,
                         transfer_dtype=args.transfer_dtype, device=device)
         for cfg, models in groups
     ]
     return members[0] if len(members) == 1 else EnsembleInferencer(members)
 
 
-def _refuse_other_families(args) -> None:
-    """The values of --task, --arch and --num_devices that the port does not
-    cover yet, on the commands that restore checkpoints."""
-    task = getattr(args, "task", "segmentation")  # test and serve take --task
-    devices = getattr(args, "num_devices", 1)  # serve takes --num_devices
-    _refuse_unported([
-        (task != "segmentation", f"--task {task}", FAMILIES),
-        (args.arch != "attention", f"--arch {args.arch}", FAMILIES),
-        (devices > 1, f"--num_devices {devices}", PARALLEL),
-    ])
+def _refuse_ensemble(args, task: str) -> None:
+    if "," in args.model_checkpoint and task == "classification":
+        raise Refused("checkpoint ensembles support segmentation only")
 
 
 def _check_views(args) -> None:
@@ -152,14 +183,37 @@ def _check_figures(args, flags) -> None:
 
 
 def make_server(args):
-    """The InferenceServer that ``serve`` runs (not yet serving)."""
+    """The InferenceServer that ``serve`` runs (not yet serving): per-point
+    labels, or under ``--task classification`` one label per cloud
+    (``CloudClassifier``)."""
     from ampnet_tpu_torch.core.device import resolve_device
     from ampnet_tpu_torch.infer.server import InferenceServer
 
-    _refuse_other_families(args)
+    _refuse_unported([(args.num_devices > 1, f"--num_devices {args.num_devices}", PARALLEL)])
+    _refuse_ensemble(args, args.task)
     device = resolve_device(args.device)
-    groups, name = _restore_groups(args.model_checkpoint, device)
-    inferencer = _make_seg_inferencer(groups, args, device, args.max_clusters)
+    groups, name = _restore_groups(args, device, args.task)
+    if args.task == "classification":
+        from ampnet_tpu_torch.infer.classify import CloudClassifier
+
+        ignored = [f for f, default in (("backend", "folded"), ("tiler", "balanced"),
+                                        ("transfer_dtype", None), ("max_clusters", None),
+                                        ("num_devices", 1))
+                   if getattr(args, f) != default]
+        if ignored:
+            print(f"--task classification ignores: {', '.join('--' + f for f in ignored)}",
+                  file=sys.stderr)
+        cfg, models = groups[0]
+        inferencer = CloudClassifier(models[0], cfg, device=device)
+    else:
+        backend = args.backend
+        if backend == "folded" and any(cfg.model.context != "attention" for cfg, _ in groups):
+            # the default backend falls back for the other families (the
+            # folded head evaluates attention parameters), and says so
+            print("backend 'folded' is attention-only; serving with 'xla'", file=sys.stderr)
+            backend = "xla"
+        _check_backend(groups, backend)
+        inferencer = _make_seg_inferencer(groups, args, device, args.max_clusters, backend)
     return InferenceServer(
         inferencer, host=args.host, port=args.port, model_name=name,
         batch_window_ms=args.batch_window_ms, max_batch_clouds=args.max_batch_clouds,
@@ -267,7 +321,7 @@ def cmd_preprocess(args) -> int:
     from ampnet_tpu_torch.preproc.pipeline import PreprocessParams, run_pipeline
     from ampnet_tpu_torch.preproc.splits import generate_split_lists
 
-    _refuse_unported([(args.geom_features, "--geom_features", FAMILIES)])
+    _refuse_unported([(args.geom_features, "--geom_features", GEOMETRY)])
     if args.assigner == "sinkhorn":  # on the card unless --device cpu: checked up front
         from ampnet_tpu_torch.core.device import resolve_device
 
@@ -333,26 +387,30 @@ def cmd_fps(args) -> int:
     return 0
 
 
-def _load_lists(path_list_files: str):
+def _load_lists(path_list_files: str, task: str = "segmentation"):
+    """The {train,val,test} lists: ``<split>_seg_files.txt``, or for
+    classification ``<split>_files.txt`` (else the segmentation list)."""
     from ampnet_tpu_torch.data.io_utils import read_split_list
 
+    tag = "seg_files" if task == "segmentation" else "files"
     out = {}
     for split in ("train", "val", "test"):
-        p = os.path.join(path_list_files, f"{split}_seg_files.txt")
+        p = os.path.join(path_list_files, f"{split}_{tag}.txt")
+        if not os.path.exists(p) and task != "segmentation":
+            p = os.path.join(path_list_files, f"{split}_seg_files.txt")
         out[split] = read_split_list(p) if os.path.exists(p) else []
     return out
 
 
 def _refuse_train_options(args) -> None:
-    """Refuse the train options this port does not cover yet."""
+    """Refuse the train options this port does not cover yet, and those the
+    JAX command refuses for classification."""
     _refuse_unported([
-        (args.task != "segmentation", f"--task {args.task}", FAMILIES),
-        (args.arch != "attention", f"--arch {args.arch}", FAMILIES),
         (args.num_devices > 1, f"--num_devices {args.num_devices}", PARALLEL),
-        (bool(args.distill_from), "--distill_from", FAMILIES),
-        (args.local_agg != "none", f"--local_agg {args.local_agg}", FAMILIES),
-        (args.geom_features, "--geom_features", FAMILIES),
-        (args.att_geom_tokens, "--att_geom_tokens", FAMILIES),
+        (bool(args.distill_from), "--distill_from", GEOMETRY),
+        (args.local_agg != "none", f"--local_agg {args.local_agg}", GEOMETRY),
+        (args.geom_features, "--geom_features", GEOMETRY),
+        (args.att_geom_tokens, "--att_geom_tokens", GEOMETRY),
         (args.dtype != "float32", f"--dtype {args.dtype}", TRAIN_REST),
         (args.oversample_factor > 1, f"--oversample_factor {args.oversample_factor}", TRAIN_REST),
         (bool(args.seg_weighing), "--seg_weighing", TRAIN_REST),
@@ -361,54 +419,88 @@ def _refuse_train_options(args) -> None:
         raise Refused(f"--batch_size {args.batch_size} must be divisible by --grad_accum "
                       f"{args.grad_accum} (equal micro-batches keep the accumulated gradient "
                       "exact)")
+    if args.task == "classification" and args.arch == "pointnet2":
+        raise Refused("pointnet2 supports segmentation only")
+    if args.task == "classification" and args.grad_accum > 1:
+        raise Refused("--grad_accum is segmentation-only (the classification step has no "
+                      "accumulation path; its residuals are tiny)")
+    if args.task == "classification" and args.focal_gamma > 0:
+        raise Refused("--focal_gamma is segmentation-only (make_cls_step_fns builds its own "
+                      "weighted-CE objective)")
 
 
 def cmd_train(args) -> int:
-    """Train the attention segmenter; prints the last epoch's metrics as JSON."""
+    """Train ``--arch`` for ``--task``; prints the last epoch's metrics as JSON.
+    The windowed families read the k-means artifacts through
+    ``WindowedCloudDataset`` + ``PaddedBatcher``; baseline, classic and
+    pointnet2 read whole clouds through ``CloudDataset`` +
+    ``SingleCloudBatcher``. Classification trains with ``make_cls_step_fns``
+    and class weights from the train split's tower/landscape counts."""
     import numpy as np
     import torch
 
     from ampnet_tpu_torch.core.config import AMPNetConfig, DataConfig, ModelConfig, TrainConfig
     from ampnet_tpu_torch.core.device import resolve_device
+    from ampnet_tpu_torch.core.metrics import get_class_weights
     from ampnet_tpu_torch.data import schema as S
-    from ampnet_tpu_torch.data.datasets import WindowedCloudDataset
+    from ampnet_tpu_torch.data.datasets import CloudDataset, WindowedCloudDataset
     from ampnet_tpu_torch.data.device_cache import maybe_device_cache
-    from ampnet_tpu_torch.data.pipeline import PaddedBatcher
-    from ampnet_tpu_torch.models.amp import AMPNetSegmenter
+    from ampnet_tpu_torch.data.pipeline import PaddedBatcher, SingleCloudBatcher
+    from ampnet_tpu_torch.models.factory import WINDOWED, build_model
+    from ampnet_tpu_torch.train.cls_step import make_cls_step_fns
     from ampnet_tpu_torch.train.trainer import Trainer
 
     _refuse_train_options(args)
     device = resolve_device(args.device)
     cfg = AMPNetConfig(
         data=DataConfig(n_points=args.number_of_points, max_windows=args.number_of_windows),
-        model=ModelConfig(bn_mode=args.bn_mode),
+        model=ModelConfig(context=args.arch, bn_mode=args.bn_mode),
         train=TrainConfig(batch_size=args.batch_size, learning_rate=args.learning_rate,
                           epochs=args.epochs, weighing_method=args.weighing_method,
                           seed=args.seed, grad_accum=args.grad_accum,
                           focal_gamma=args.focal_gamma,
                           async_checkpoint=args.ckpt_io != "sync"),
     )
-    lists = _load_lists(args.path_list_files)
+    lists = _load_lists(args.path_list_files, args.task)
     if not lists["train"]:
         print(f"empty train list in {args.path_list_files}", file=sys.stderr)
         return 1
-    noise = S.REFERENCE_NOISE_CLASSES if args.reference_noise_compat else S.DATASET_NOISE_CLASSES
+    windowed = args.arch in WINDOWED
+    noise = (S.REFERENCE_NOISE_CLASSES if windowed and args.reference_noise_compat
+             else S.DATASET_NOISE_CLASSES)
 
-    def batcher(split, seed):
-        if not lists[split]:
+    def dataset(split):
+        if windowed:
+            return WindowedCloudDataset(args.dataset_path, lists[split], task=args.task,
+                                        noise_classes=noise)
+        return CloudDataset(args.dataset_path, lists[split], task=args.task,
+                            number_of_points=args.number_of_points)
+
+    def batcher(ds, seed):
+        if ds is None:
             return None
-        ds = WindowedCloudDataset(args.dataset_path, lists[split], noise_classes=noise)
-        b = PaddedBatcher(ds, args.batch_size, n_points=args.number_of_points,
-                          max_windows=args.number_of_windows, seed=seed,
-                          drop_last=len(ds) >= args.batch_size,
-                          pad_to_multiple=args.grad_accum)
+        kw = dict(seed=seed, drop_last=len(ds) >= args.batch_size,
+                  pad_to_multiple=args.grad_accum)
+        b = (PaddedBatcher(ds, args.batch_size, n_points=args.number_of_points,
+                           max_windows=args.number_of_windows, **kw) if windowed
+             else SingleCloudBatcher(ds, args.batch_size, n_points=args.number_of_points, **kw))
         return maybe_device_cache(b, device, args.device_cache)
 
-    model = AMPNetSegmenter(cfg.model, num_features=cfg.data.num_features,
-                            generator=torch.Generator().manual_seed(cfg.train.seed))
-    trainer = Trainer(cfg, model, batcher("train", cfg.train.seed),
-                      batcher("val", cfg.train.seed + 1), args.out_path,
-                      name="attention_segmentation", device=device)
+    train_ds = dataset("train")
+    val_ds = dataset("val") if lists["val"] else None
+    model = build_model(cfg, args.arch, args.task,
+                        generator=torch.Generator().manual_seed(cfg.train.seed))
+    step_fns = None
+    if args.task == "classification":
+        # tower / landscape counts of the train split (whole-cloud datasets
+        # know them from the file names; 1 each otherwise, as in JAX)
+        counts = [getattr(train_ds, "len_landscape", 1), getattr(train_ds, "len_towers", 1)]
+        step_fns = make_cls_step_fns(cfg, get_class_weights(
+            args.weighing_method, [max(c, 1) for c in counts], beta=cfg.train.beta))
+    trainer = Trainer(cfg, model, batcher(train_ds, cfg.train.seed),
+                      batcher(val_ds, cfg.train.seed + 1), args.out_path,
+                      name=f"{args.arch}_{args.task}", task=args.task, device=device,
+                      step_fns=step_fns)
     try:
         if args.model_checkpoint and not trainer.resume(args.model_checkpoint):
             print(f"no checkpoint {args.model_checkpoint!r} under {trainer.ckpt.directory}",
@@ -425,19 +517,24 @@ def cmd_train(args) -> int:
 
 def cmd_test(args) -> int:
     """Tiled evaluation of the test (else val) list: appends the summary row
-    to ``<out_path>/IoU-results.csv`` and prints the summary as JSON."""
+    to ``<out_path>/IoU-results.csv`` and prints the summary as JSON. Under
+    ``--task classification`` it writes ``classification-results.csv`` and
+    ``wrong_predictions.csv`` instead (``run_classification_test``)."""
     from ampnet_tpu_torch.core.device import resolve_device
     from ampnet_tpu_torch.data.datasets import EvalCloudDataset
     from ampnet_tpu_torch.infer.tiled import evaluate_dataset
 
-    _refuse_other_families(args)
+    _refuse_ensemble(args, args.task)
+    if args.task == "classification":
+        return run_classification_test(args, resolve_device(args.device))
     _check_views(args)
     _check_figures(args, ("plot", "analysis"))
     device = resolve_device(args.device)
-    groups, name = _restore_groups(args.model_checkpoint, device)
+    groups, name = _restore_groups(args, device)
+    _check_backend(groups, args.backend)
     lists = _load_lists(args.path_list_files)
     ds = EvalCloudDataset(args.dataset_path, lists["test"] or lists["val"])
-    inferencer = _make_seg_inferencer(groups, args, device, args.max_clusters)
+    inferencer = _make_seg_inferencer(groups, args, device, args.max_clusters, args.backend)
     out = evaluate_dataset(
         inferencer, ds, out_csv=os.path.join(args.out_path, "IoU-results.csv"),
         model_name=name, plot_dir=os.path.join(args.out_path, "plots") if args.plot else None,
@@ -448,6 +545,38 @@ def cmd_test(args) -> int:
     if "analysis" in out:
         print(f"error analysis -> {os.path.join(args.out_path, 'analysis.json')}",
               file=sys.stderr)
+    return 0
+
+
+def run_classification_test(args, device) -> int:
+    """``test --task classification``: the checkpoint's eval step over the
+    test (else val) list, batches of 4 in list order, with the dataset and
+    batcher of the checkpoint's recorded arch (the JAX command's
+    ``cmd_test``); prints the metrics as JSON."""
+    from ampnet_tpu_torch.data.datasets import CloudDataset, WindowedCloudDataset
+    from ampnet_tpu_torch.data.pipeline import PaddedBatcher, SingleCloudBatcher
+    from ampnet_tpu_torch.infer.classify import evaluate_classification
+    from ampnet_tpu_torch.models.factory import WINDOWED
+    from ampnet_tpu_torch.train.cls_step import make_cls_step_fns
+    from ampnet_tpu_torch.train.state import create_train_state
+
+    cfg, model, name = _restore_model(args.model_checkpoint, device, args.arch, args.task)
+    lists = _load_lists(args.path_list_files, args.task)
+    files = lists["test"] or lists["val"]
+    if cfg.model.context in WINDOWED:
+        ds = WindowedCloudDataset(args.dataset_path, files, task=args.task)
+        batcher = PaddedBatcher(ds, 4, n_points=cfg.data.n_points,
+                                max_windows=cfg.data.max_windows, shuffle=False,
+                                drop_last=False)
+    else:
+        ds = CloudDataset(args.dataset_path, files, task=args.task,
+                          number_of_points=cfg.data.n_points)
+        batcher = SingleCloudBatcher(ds, 4, n_points=cfg.data.n_points, shuffle=False,
+                                     drop_last=False)
+    _, eval_step = make_cls_step_fns(cfg)
+    out = evaluate_classification(create_train_state(cfg, model, device=device), eval_step,
+                                  batcher, out_dir=args.out_path, model_name=name)
+    print(json.dumps(out, indent=2))
     return 0
 
 
@@ -463,7 +592,6 @@ def cmd_infer(args) -> int:
     from ampnet_tpu_torch.data.schema import normalize_xy_neg_one, select_model_features
     from ampnet_tpu_torch.infer.tiled import eval_chunks, predict_chunk
 
-    _refuse_other_families(args)
     _check_views(args)
     las_tiles = sorted(glob.glob(os.path.join(args.dataset_path, "*.las")))
     if las_tiles and args.save_probs:
@@ -471,8 +599,9 @@ def cmd_infer(args) -> int:
                       "is a classified LAS); run on .pkl clouds instead")
     _check_figures(args, ("save_probs",))
     device = resolve_device(args.device)
-    groups, _ = _restore_groups(args.model_checkpoint, device)
-    inferencer = _make_seg_inferencer(groups, args, device, None)
+    groups, _ = _restore_groups(args, device)
+    _check_backend(groups, args.backend)
+    inferencer = _make_seg_inferencer(groups, args, device, None, args.backend)
     if las_tiles:
         return infer_las_tiles(inferencer, las_tiles, args)
     files = [os.path.basename(f)
@@ -520,30 +649,32 @@ def infer_las_tiles(inferencer, tiles, args) -> int:
 
 
 def cmd_export(args) -> int:
-    """One checkpoint (a port directory or a ``.pth``) as a reference ``.pth``
-    (utils/utils.py:422-438) with its number_of_points, batch_size and lr."""
+    """One segmenter checkpoint (a port directory or a ``.pth``) as a
+    reference ``.pth`` (utils/utils.py:422-438) of its family, attention or
+    gru (read from its parameters), with its number_of_points, batch_size and
+    lr; the other families are refused with the JAX command's message."""
     from ampnet_tpu_torch.core.device import resolve_device
-    from ampnet_tpu_torch.core.weights import flax_variables, save_reference_pth
+    from ampnet_tpu_torch.core.weights import flax_variables, reference_arch, save_reference_pth
 
-    _refuse_other_families(args)
-    cfg, model, name = _restore_model(args.model_checkpoint, resolve_device(args.device))
+    cfg, model, name = _restore_model(args.model_checkpoint, resolve_device(args.device),
+                                      args.arch)
+    variables = flax_variables(model)
+    arch = reference_arch(variables)
     meta = {"number_of_points": cfg.data.n_points, "batch_size": cfg.train.batch_size,
             "lr": cfg.train.learning_rate}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    save_reference_pth(flax_variables(model), args.out, meta=meta)
-    print(f"exported {name} (attention) -> {args.out}")
+    save_reference_pth(variables, args.out, meta=meta)
+    print(f"exported {name} ({arch}) -> {args.out}")
     return 0
 
 
 def cmd_demo(args) -> int:
     """End-to-end on synthetic data, each stage through its own command:
-    synth → preprocess → train → test (prints ``test``'s summary JSON)."""
+    synth → preprocess → train ``--arch`` → test (prints ``test``'s summary
+    JSON)."""
     from ampnet_tpu_torch.core.device import resolve_device
 
-    _refuse_unported([
-        (args.arch != "attention", f"--arch {args.arch}", FAMILIES),
-        (args.geom_features, "--geom_features", FAMILIES),
-    ])
+    _refuse_unported([(args.geom_features, "--geom_features", GEOMETRY)])
     resolve_device(args.device)  # before any stage: the card unless --device cpu
     base, dev = args.out_path, ["--device", args.device]
     las, data, run = (os.path.join(base, d) for d in ("las", "data", "run"))
@@ -554,11 +685,11 @@ def cmd_demo(args) -> int:
          "--points_per_window", str(args.points_per_window), "--seed", "0"],
         ["preprocess", "--in_path", las, "--out_path", data, "--dataset", "SYNTH",
          "--min_points", "256", "--n_points", npts, "--max_windows", "5", "--seed", "0"],
-        ["train", data, "--path_list_files", data, "--out_path", run,
+        ["train", data, "--path_list_files", data, "--out_path", run, "--arch", args.arch,
          "--number_of_points", npts, "--number_of_windows", "5", "--batch_size", "2",
          "--epochs", str(args.epochs), "--seed", "0", *dev],
         ["test", data, "--path_list_files", data, "--out_path", run, "--model_checkpoint",
-         os.path.join(run, "checkpoints", "attention_segmentation_best"),
+         os.path.join(run, "checkpoints", f"{args.arch}_segmentation_best"), "--arch", args.arch,
          "--max_clusters", str(max_clusters), "--backend", args.backend, *dev],
     ]
     parser = build_parser()
@@ -574,7 +705,9 @@ def _add_checkpoint_options(s) -> None:
     s.add_argument("--model_checkpoint", required=True,
                    help="a reference .pth or a checkpoint directory written by train; "
                         "comma-separate several for a probability-averaging ensemble")
-    s.add_argument("--arch", default="attention", help="attention only for now")
+    s.add_argument("--arch", default="attention",
+                   help="attention | gru | baseline | classic | pointnet2; a checkpoint "
+                        "directory's recorded arch wins")
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
 
@@ -654,10 +787,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--n_points", type=int, default=8192)
     s.set_defaults(fn=cmd_fps)
 
-    s = sub.add_parser("train", help="train the attention segmenter")
+    s = sub.add_parser("train", help="train a model (any --arch, either --task)")
     s.add_argument("dataset_path", help="folder of kmeans_<name>.pt / .npz artifacts")
     s.add_argument("--path_list_files", default="train_test_files/RGBN_100x100",
-                   help="folder of {train,val,test}_seg_files.txt")
+                   help="folder of {train,val,test}_seg_files.txt (classification: "
+                        "{train,val,test}_files.txt, else the segmentation lists)")
     s.add_argument("--out_path", default="results")
     s.add_argument("--number_of_points", type=int, default=2048)
     s.add_argument("--number_of_windows", type=int, default=9)
@@ -685,11 +819,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's loader does (datasets.py:339-350)")
     s.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
-    # the JAX command line's other options: refused unless at their defaults
     s.add_argument("--task", choices=["segmentation", "classification"],
                    default="segmentation")
     s.add_argument("--arch", choices=["attention", "gru", "baseline", "classic", "pointnet2"],
-                   default="attention")
+                   default="attention",
+                   help="attention / gru: windowed k-means artifacts; baseline / classic / "
+                        "pointnet2: whole .pkl clouds resampled to --number_of_points")
+    # the JAX command line's other options: refused unless at their defaults
     s.add_argument("--num_devices", type=int, default=1)
     s.add_argument("--distill_from", default="")
     s.add_argument("--local_agg", choices=["none", "edge"], default="none")
@@ -704,7 +840,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("dataset_path", help="folder of 13-column .pkl clouds")
     _add_checkpoint_options(s)
     s.add_argument("--path_list_files", required=True,
-                   help="folder of test_seg_files.txt (else val_seg_files.txt)")
+                   help="folder of test_seg_files.txt (else val_seg_files.txt); "
+                        "classification: test_files.txt, else the segmentation lists")
     s.add_argument("--out_path", default="results")
     s.add_argument("--task", choices=["segmentation", "classification"],
                    default="segmentation")
@@ -732,11 +869,13 @@ def build_parser() -> argparse.ArgumentParser:
     _add_view_options(s)
     s.set_defaults(fn=cmd_infer)
 
-    s = sub.add_parser("export", help="a checkpoint as a reference .pth")
+    s = sub.add_parser("export", help="an attention or gru segmenter checkpoint as a "
+                                      "reference .pth")
     s.add_argument("--model_checkpoint", required=True,
                    help="a checkpoint directory written by train, or a .pth")
     s.add_argument("--out", required=True, help="output .pth path")
-    s.add_argument("--arch", default="attention", help="attention only for now")
+    s.add_argument("--arch", default="attention",
+                   help="the family is read from the checkpoint's parameters")
     s.add_argument("--device", default="cuda",
                    help="where the checkpoint is restored: cuda (default) or cpu")
     s.set_defaults(fn=cmd_export)
@@ -744,7 +883,9 @@ def build_parser() -> argparse.ArgumentParser:
     s = sub.add_parser("serve", help="long-lived HTTP inference server")
     _add_checkpoint_options(s)
     s.add_argument("--task", choices=["segmentation", "classification"],
-                   default="segmentation")
+                   default="segmentation",
+                   help="segmentation: per-point labels; classification: one "
+                        "tower/no-tower label (+ probabilities) per cloud")
     s.add_argument("--num_devices", type=int, default=1, help="1 for now")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8421)
@@ -763,7 +904,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     s = sub.add_parser("demo", help="synthetic end-to-end pipeline")
     s.add_argument("--out_path", default="/tmp/ampnet_demo")
-    s.add_argument("--arch", default="attention", help="attention only for now")
+    s.add_argument("--arch", choices=["attention", "gru", "baseline", "classic", "pointnet2"],
+                   default="attention", help="the family the train stage trains")
     s.add_argument("--n_tiles", type=int, default=3)
     s.add_argument("--points_per_window", type=int, default=6000)
     s.add_argument("--number_of_points", type=int, default=512)

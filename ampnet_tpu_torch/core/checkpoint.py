@@ -39,7 +39,7 @@ from ampnet_tpu_torch.core.weights import (
     tensors_to_flax,
 )
 from ampnet_tpu_torch.data.schema import refuse_extra_features
-from ampnet_tpu_torch.models.amp import AMPNetSegmenter
+from ampnet_tpu_torch.models.factory import build_model
 
 SCHEMA_VERSION = 1
 STATE_FILE = "state.pt"
@@ -219,18 +219,18 @@ def is_checkpoint_dir(path: str) -> bool:
 
 def load_model(path: str, device="cuda"):
     """(cfg, model in eval mode on ``device``) from a checkpoint directory
-    ``<dir>/<name>``: the config from ``meta.json``, the weights and BatchNorm
-    statistics from ``state.pt``. On the card unless ``device="cpu"``."""
+    ``<dir>/<name>``: the config from ``meta.json`` (its ``model.context`` is
+    the arch, as the JAX command records it), the model from the factory for
+    that arch and the meta's task, the weights and BatchNorm statistics from
+    ``state.pt``. On the card unless ``device="cpu"``."""
     dev = resolve_device(device)
     meta = read_meta(path)
-    if meta.get("task", "segmentation") != "segmentation" or not meta.get("config"):
-        raise NotImplementedError(f"{path}: only segmentation checkpoints with their config "
-                                  "are served; classification waits for ROADMAP.md Queue 1, "
-                                  "item 4")
+    if not meta.get("config"):
+        raise ValueError(f"{path}: meta.json records no config, so the model cannot be built")
     cfg = AMPNetConfig.from_json(json.dumps(meta["config"]))
     refuse_extra_features(cfg.data.extra_features)
     p = read_payload(path)
-    model = AMPNetSegmenter(cfg.model, num_features=cfg.data.num_features)
+    model = build_model(cfg, cfg.model.context, meta.get("task", "segmentation"))
     load_flax_variables(model, {"params": _numpy_tree(p["params"]),
                                 "batch_stats": _numpy_tree(p["batch_stats"])})
     return cfg, model.to(dev).eval()

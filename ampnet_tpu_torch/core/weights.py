@@ -4,8 +4,9 @@
   ``{"params", "batch_stats"}`` tree (nested dicts of numpy arrays) onto the
   port's modules, path for path: a Dense ``kernel [Cin, Cout]`` becomes
   ``Linear.weight [Cout, Cin]``; BN ``scale``/``bias``/``mean``/``var`` keep
-  their names. ``in_proj``'s columns split q/k/v, which is the row split of
-  the transposed weight that ``WindowMHA`` uses.
+  their names; a module's own parameters (``ClassificationHead.mix_kernel``)
+  keep name and shape. ``in_proj``'s columns split q/k/v, which is the row
+  split of the transposed weight that ``WindowMHA`` uses.
 * ``flax_variables(model)`` is the inverse (through ``flax_leaf_map``, the
   one table of torch name ↔ Flax path).
 * ``optax_adam_state`` / ``load_optax_adam_state`` carry Adam's state across:
@@ -13,9 +14,14 @@
   per-parameter ``step``/``exp_avg``/``exp_avg_sq``.
 * ``load_reference_pth(path)`` reads the reference checkpoint layout
   (``{'base_pointnet': sd, 'segmen_net': sd, ...}``, utils/utils.py:422-438,
-  also what ``ampnet export`` writes) into the same tree; ``save_reference_pth``
-  writes it. One key table serves both directions — the port's own copy of the
-  mapping in ``ampnet_tpu/core/torch_import.py`` / ``torch_export.py``.
+  also what ``ampnet export`` writes) of the attention and the GRU segmenters
+  into the same tree; ``save_reference_pth`` writes it. One key table serves
+  both directions — the port's own copy of the mapping in
+  ``ampnet_tpu/core/torch_import.py`` / ``torch_export.py``. ``nn.GRU`` packs
+  its gates row-wise (r, z, n) with two biases; Flax's ``GRUCell`` has one
+  input-side bias for r and z, so on import the two r/z biases sum, and on
+  export ``bias_ih`` is that sum and ``bias_hh`` is 0 there (``hn``'s bias is
+  kept): torch adds the two, so the module computes the same.
 """
 
 from __future__ import annotations
@@ -26,7 +32,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ampnet_tpu_torch.models.amp import FAMILIES_TODO
 from ampnet_tpu_torch.models.layers import MaskedBatchNorm
 
 
@@ -55,6 +60,9 @@ def _target(mod: nn.Module, name: str, leaf) -> Tuple[str, np.ndarray]:
     if isinstance(mod, nn.Linear) and name in ("kernel", "bias"):
         return ("weight", arr.T) if name == "kernel" else ("bias", arr)
     if isinstance(mod, MaskedBatchNorm) and name in ("scale", "bias", "mean", "var"):
+        return name, arr
+    if not isinstance(mod, (nn.Linear, MaskedBatchNorm)) and name in dict(
+            mod.named_parameters(recurse=False)):
         return name, arr
     raise ValueError(f"no counterpart for Flax leaf {name!r} on {type(mod).__name__}")
 
@@ -100,6 +108,9 @@ def flax_leaf_map(model: nn.Module) -> List[Tuple[str, str, Tuple[str, ...], boo
         elif isinstance(mod, MaskedBatchNorm):
             out += [(pre + leaf, "params", path + (leaf,), False) for leaf in ("scale", "bias")]
             out += [(pre + leaf, "batch_stats", path + (leaf,), False) for leaf in ("mean", "var")]
+        else:  # a module's own parameters, as Flax ``self.param`` declares them
+            out += [(pre + leaf, "params", path + (leaf,), False)
+                    for leaf, _ in mod.named_parameters(recurse=False)]
     return out
 
 
@@ -210,8 +221,10 @@ def _tnet(prefix, path):
     yield g, f"{prefix}.fc_3.bias", "params", path + ("fc_out", "bias"), "vec"
 
 
-def _reference_layout():
-    """BasePointNet + SegmentationWithAttention (pointnetAtt.py:50-209)."""
+def _reference_layout(arch: str = "attention"):
+    """BasePointNet + SegmentationWithAttention (pointnetAtt.py:50-209), or
+    + SegmentationWithGRU's head (:212-258; its ``gru_global`` entries are
+    mapped by ``_gru_from_torch`` / ``_gru_to_torch``)."""
     enc = ("encoder",)
     yield from _tnet("input_transform", enc + ("input_tnet",))
     yield from _tnet("feature_transform", enc + ("feature_tnet",))
@@ -220,14 +233,15 @@ def _reference_layout():
     for i, c in enumerate((3, 4, 5, 6)):
         yield from _block("base_pointnet", f"conv_{c}", f"bn_{c}", enc + ("mlp_b", f"mlp_{i}"))
     h = "segmen_net"
-    for fc in ("fc1", "fc2"):
-        yield h, f"{fc}.weight", "params", ("context", "pos_enc", fc, "kernel"), "linear"
-        yield h, f"{fc}.bias", "params", ("context", "pos_enc", fc, "bias"), "vec"
-    mha = ("context", "mha")
-    yield h, "attention.in_proj_weight", "params", mha + ("in_proj", "kernel"), "linear"
-    yield h, "attention.in_proj_bias", "params", mha + ("in_proj", "bias"), "vec"
-    yield h, "attention.out_proj.weight", "params", mha + ("out_proj", "kernel"), "linear"
-    yield h, "attention.out_proj.bias", "params", mha + ("out_proj", "bias"), "vec"
+    if arch == "attention":
+        for fc in ("fc1", "fc2"):
+            yield h, f"{fc}.weight", "params", ("context", "pos_enc", fc, "kernel"), "linear"
+            yield h, f"{fc}.bias", "params", ("context", "pos_enc", fc, "bias"), "vec"
+        mha = ("context", "mha")
+        yield h, "attention.in_proj_weight", "params", mha + ("in_proj", "kernel"), "linear"
+        yield h, "attention.in_proj_bias", "params", mha + ("in_proj", "bias"), "vec"
+        yield h, "attention.out_proj.weight", "params", mha + ("out_proj", "kernel"), "linear"
+        yield h, "attention.out_proj.bias", "params", mha + ("out_proj", "bias"), "vec"
     for ours, conv, bn, tag in (("dense_1", "conv_2", "bn_2", "bn_1"),
                                 ("dense_2", "conv_3", "bn_3", "bn_2")):
         yield h, f"{conv}.weight", "params", ("head", ours, "kernel"), "conv"
@@ -237,45 +251,97 @@ def _reference_layout():
     yield h, "conv_4.bias", "params", ("head", "dense_out", "bias"), "vec"
 
 
+GRU_KEY = "gru_global.{}_l0"
+
+
+def _gru_from_torch(sd: Dict) -> Dict:
+    """``nn.GRU`` state (rows r, z, n) → Flax ``GRUCell`` params."""
+    wih, whh, bih, bhh = (np.asarray(sd[GRU_KEY.format(k)], np.float32)
+                          for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+    h = whh.shape[1]
+    part = lambda a, i: a[i * h:(i + 1) * h]
+    t = lambda a: np.ascontiguousarray(a.T)
+    return {
+        "ir": {"kernel": t(part(wih, 0)), "bias": part(bih, 0) + part(bhh, 0)},
+        "iz": {"kernel": t(part(wih, 1)), "bias": part(bih, 1) + part(bhh, 1)},
+        "in": {"kernel": t(part(wih, 2)), "bias": part(bih, 2)},
+        "hr": {"kernel": t(part(whh, 0))},
+        "hz": {"kernel": t(part(whh, 1))},
+        "hn": {"kernel": t(part(whh, 2)), "bias": part(bhh, 2)},
+    }
+
+
+def _gru_to_torch(gru: Dict) -> Dict[str, torch.Tensor]:
+    """Flax ``GRUCell`` params → ``nn.GRU`` state: ``bias_ih`` the summed
+    input biases, ``bias_hh`` 0 for r and z and ``hn``'s bias for n."""
+    k = lambda g: np.asarray(gru[g]["kernel"], np.float32).T
+    b = lambda g: np.asarray(gru[g]["bias"], np.float32)
+    h = k("hn").shape[1]
+    parts = {
+        "weight_ih": np.concatenate([k(g) for g in ("ir", "iz", "in")]),
+        "weight_hh": np.concatenate([k(g) for g in ("hr", "hz", "hn")]),
+        "bias_ih": np.concatenate([b(g) for g in ("ir", "iz", "in")]),
+        "bias_hh": np.concatenate([np.zeros(2 * h, np.float32), b("hn")]),
+    }
+    return {GRU_KEY.format(n): torch.from_numpy(np.ascontiguousarray(a)) for n, a in parts.items()}
+
+
+def reference_arch(variables: Dict) -> str:
+    """'attention' or 'gru' from a segmenter's Flax tree (what its
+    ``context`` holds); other trees are refused with the JAX command's
+    message (``ampnet_tpu/cli/main.py:903-906``)."""
+    params = variables["params"]
+    ctx = params.get("context", {})
+    arch = "gru" if "gru" in ctx else ("attention" if "mha" in ctx else None)
+    if arch is None or "dense_1" not in params.get("head", {}):
+        raise NotImplementedError("torch export supports the attention/gru segmenters (no "
+                                  "context.mha/context.gru in the checkpoint's parameters)")
+    return arch
+
+
 def load_reference_pth(path: str) -> Tuple[Dict, Dict]:
     """Reference ``model_*.pth`` → (Flax-layout variables, meta).
 
-    ``meta`` carries the payload's plain fields (number_of_points, epoch, …)
-    plus ``arch``, ``point_dim`` and ``global_feat`` read from the weights.
-    GRU checkpoints (``gru_global`` keys) are refused until that family is
-    ported."""
+    The family comes from the head's keys (``gru_global`` → gru, else
+    attention). ``meta`` carries the payload's plain fields (number_of_points,
+    epoch, …) plus ``arch``, ``point_dim`` and ``global_feat`` read from the
+    weights, and ``gru_hidden`` for a GRU (whose trainer builds the encoder with
+    point_dimension 2, train_pointnetGRU.py:121)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sds = {g: {k: v.detach().cpu().numpy() for k, v in ckpt[g].items()}
            for g in ("base_pointnet", "segmen_net")}
-    if "gru_global.weight_ih_l0" in sds["segmen_net"]:
-        raise NotImplementedError(f"GRU checkpoints are not ported yet: {FAMILIES_TODO}")
+    arch = "gru" if GRU_KEY.format("weight_ih") in sds["segmen_net"] else "attention"
     variables: Dict = {"params": {}, "batch_stats": {}}
-    for group, key, coll, fpath, kind in _reference_layout():
+    for group, key, coll, fpath, kind in _reference_layout(arch):
         a = np.asarray(sds[group][key], np.float32)
         if kind == "conv":
             a = a[:, :, 0]
         if kind != "vec":
             a = np.ascontiguousarray(a.T)
         _set(variables[coll], fpath, a)
+    if arch == "gru":
+        variables["params"].setdefault("context", {})["gru"] = _gru_from_torch(sds["segmen_net"])
     meta = {k: v for k, v in ckpt.items()
             if not k.endswith(("pointnet", "net")) and not isinstance(v, dict)}
-    meta["arch"] = "attention"
+    meta["arch"] = arch
     d2 = sds["base_pointnet"]["input_transform.fc_3.bias"].shape[0]
     meta["point_dim"] = int(round(d2 ** 0.5))
     meta["global_feat"] = int(sds["base_pointnet"]["conv_6.weight"].shape[0])
+    if arch == "gru":
+        meta["gru_hidden"] = int(sds["segmen_net"][GRU_KEY.format("weight_hh")].shape[1])
     return variables, meta
 
 
 def save_reference_pth(variables: Dict, path: str, meta: Dict = None) -> None:
-    """Write Flax-layout ``variables`` (e.g. ``flax_variables(model)``) as a
-    reference ``model_*.pth`` (attention segmenter); ``meta`` fills the
-    payload's plain fields (number_of_points, batch_size, lr, ...). Trees
-    without ``context.mha`` (other families) are refused."""
-    if "mha" not in variables["params"].get("context", {}):
-        raise NotImplementedError("only the attention segmenter exports (no context.mha in "
-                                  f"these parameters); other families: {FAMILIES_TODO}")
+    """Write a segmenter's Flax-layout ``variables`` (e.g.
+    ``flax_variables(model)``) as a reference ``model_*.pth`` of its family
+    (attention or gru, ``reference_arch``); ``meta`` fills the payload's plain
+    fields (number_of_points, batch_size, lr, ...)."""
+    arch = reference_arch(variables)
     sds: Dict = {"base_pointnet": {}, "segmen_net": {}}
-    for group, key, coll, fpath, kind in _reference_layout():
+    if arch == "gru":
+        sds["segmen_net"].update(_gru_to_torch(variables["params"]["context"]["gru"]))
+    for group, key, coll, fpath, kind in _reference_layout(arch):
         a = np.asarray(_get(variables[coll], fpath), np.float32)
         if kind != "vec":
             a = a.T

@@ -47,17 +47,20 @@ def estimate_cache_bytes(batcher) -> int:
 def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor,
                  pad: torch.Tensor) -> Dict[str, torch.Tensor]:
     """On-device batch gather from the cache; replicated pad entries get all
-    labels −1, so the loss's ignore_index and the confusion matrix drop them."""
+    targets −1 (the segmentation labels and ``cls_label``), so the loss's
+    ignore_index and the confusion matrix drop them."""
     out = {k: v[idx] for k, v in data.items()}
-    if "labels" in out:
-        lbl = out["labels"]
-        out["labels"] = torch.where(pad.reshape((-1,) + (1,) * (lbl.dim() - 1)),
-                                    torch.full((), -1, dtype=lbl.dtype, device=lbl.device), lbl)
+    for key in ("labels", "cls_label"):
+        if key in out:
+            t = out[key]
+            out[key] = torch.where(pad.reshape((-1,) + (1,) * (t.dim() - 1)),
+                                   torch.full((), -1, dtype=t.dtype, device=t.device), t)
     return out
 
 
 class DeviceCachedBatcher:
-    """Wrap a ``PaddedBatcher``; serve its batches from a cache on ``device``."""
+    """Wrap a ``PaddedBatcher`` or ``SingleCloudBatcher``; serve its batches
+    from a cache on ``device``."""
 
     def __init__(self, inner, device, limit_bytes: int = DEFAULT_LIMIT_BYTES):
         self.inner = inner

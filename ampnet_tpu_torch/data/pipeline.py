@@ -1,10 +1,11 @@
 """Host input pipeline: padded static-shape batches, the port's own copy of
 ``ampnet_tpu/data/pipeline.py`` (``pad_windowed_sample``, ``PaddedBatcher``,
-``to_device_batch``). Contract of every batch::
+``SingleCloudBatcher``, ``to_device_batch``). Contract of every batch::
 
     points     [B, W, N, F] float32  — windows replicate-padded to W=max_windows
     labels     [B, W, N]    int32    — padded windows are all −1 (loss-ignored)
     centroids  [B, W, 2]    float32  — replicate-padded
+    cls_label  [B]          int32    — only for classification datasets
     names      list[str]             — host-side only
 
 Point-axis resampling uses ONE index list shared across a cloud's windows, as
@@ -94,9 +95,15 @@ class PaddedBatcher:
         out = dict(batch)
         for k in ("points", "centroids"):
             out[k] = np.concatenate([batch[k], batch[k][idx]], axis=0)
-        out["labels"] = np.concatenate([batch["labels"], np.full_like(batch["labels"][idx], -1)])
+        for k in ("labels", "cls_label"):  # padded clouds carry no loss or metric weight
+            if k in batch:
+                out[k] = np.concatenate([batch[k], np.full_like(batch[k][idx], -1)])
         out["names"] = batch["names"] + [f"<pad:{batch['names'][i]}>" for i in idx]
         return out
+
+    def _windowed(self, sample: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """A dataset sample in the windowed ``[W, N, F]`` layout."""
+        return sample
 
     def _make_batches(self, rng: np.random.Generator) -> Iterator[Dict]:
         order = np.arange(len(self.dataset))
@@ -104,7 +111,7 @@ class PaddedBatcher:
             rng.shuffle(order)
         for b in range(len(self)):
             idxs = order[b * self.batch_size: (b + 1) * self.batch_size]
-            samples = [pad_windowed_sample(self.dataset[int(i)], self.n_points,
+            samples = [pad_windowed_sample(self._windowed(self.dataset[int(i)]), self.n_points,
                                            self.max_windows, rng) for i in idxs]
             batch = {
                 "points": np.stack([s["points"] for s in samples]),
@@ -112,12 +119,27 @@ class PaddedBatcher:
                 "centroids": np.stack([s["centroids"] for s in samples]),
                 "names": [s["name"] for s in samples],
             }
+            if "cls_label" in samples[0]:
+                batch["cls_label"] = np.asarray([s["cls_label"] for s in samples])
             yield self._pad_batch_to_multiple(batch)
 
     def __iter__(self) -> Iterator[Dict]:
         rng = np.random.default_rng(self.seed + self.epoch)
         self.epoch += 1
         yield from self._make_batches(rng)
+
+
+class SingleCloudBatcher(PaddedBatcher):
+    """Batches of whole clouds (``CloudDataset``): each cloud is a one-window
+    sample, so the same ``[B, W, N, F]`` contract serves the baseline models
+    (W = 1; the default 4096 points are the JAX batcher's)."""
+
+    def __init__(self, dataset, batch_size: int, n_points: int = 4096, **kw):
+        super().__init__(dataset, batch_size, n_points=n_points, max_windows=1, **kw)
+
+    def _windowed(self, sample):
+        pts, lbl = sample["points"][None], sample["labels"][None]  # [1, N, F], [1, N]
+        return dict(sample, points=pts, labels=lbl, centroids=pts[:, :, :2].mean(axis=1))
 
 
 def to_device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:

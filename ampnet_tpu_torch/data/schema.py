@@ -50,6 +50,13 @@ def remap_segmentation_labels(raw_class: np.ndarray) -> np.ndarray:
     return np.where(ids < 0, -1, out).astype(np.int32)
 
 
+def classification_label(raw_class: np.ndarray) -> np.int32:
+    """Binary tower-presence label: 1 iff any point has class 15 or 14
+    (datasets.py:424-429)."""
+    ids = np.asarray(raw_class)
+    return np.int32(((ids == 15) | (ids == 14)).any())
+
+
 def drop_noise_points(pc: np.ndarray, noise_classes=DATASET_NOISE_CLASSES) -> np.ndarray:
     """Remove noise-class point rows from an [N, 13] or windowed [N, 13, W]
     array; in the windowed layout a row goes if ANY window copy has a noise
@@ -73,11 +80,11 @@ def select_model_features(pc: np.ndarray, extra_features: int = 0) -> np.ndarray
 
 def refuse_extra_features(extra_features: int) -> None:
     """Raise for a model that wants geometric feature columns beyond the
-    canonical 13: ROADMAP.md Queue 1, item 4."""
+    canonical 13: ROADMAP.md Queue 1, item 4b."""
     if extra_features:
         raise NotImplementedError(
             f"{extra_features} geometric feature columns (13..{NUM_CANONICAL_COLS + extra_features - 1}) "
-            "are not ported yet: ROADMAP.md Queue 1, item 4 (other families and contexts)")
+            "are not ported yet: ROADMAP.md Queue 1, item 4b (geometry and distillation)")
 
 
 def normalize_xy_neg_one(pc: np.ndarray) -> np.ndarray:

@@ -37,6 +37,11 @@ averages on the host over member inferencers whose window geometry may
 differ. ``evaluate_dataset`` is the tester behind ``test``: per-class IoU over
 a dataset, one CSV row, optional figures and error analysis.
 
+Any segmenter of the factory runs here under ``xla``; the command line
+gives baseline, classic and PointNet++ ``max_clusters=1``, so a whole cloud is
+one window (k = 1) of capacity ``n_points · 2^j``, as the JAX command does
+(``ampnet_tpu/cli/main.py:589-611``).
+
 Not ported yet: the mesh (``--num_devices``, ROADMAP.md Queue 1, item 5).
 """
 

@@ -21,6 +21,11 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    """``generator``, or one seeded 0: a model's init draws from it."""
+    return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
     """Flax's default Dense init (variance 1/fan_in), for an ``nn.Linear``
     weight ``[Cout, Cin]``, drawn from an explicit generator."""

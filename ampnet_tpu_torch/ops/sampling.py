@@ -9,7 +9,8 @@ Replaces the host-side NumPy paths of the reference:
 
 ``farthest_point_sampling`` is a loop over the S samples on the tensor's
 device with one O(N) distance update per step and no host sync inside the
-loop (the selected index stays a device tensor). It is the plain version
+loop (the selected index stays a device tensor);
+``batched_farthest_point_sampling`` runs it over B clouds at once (PointNet++). It is the plain version
 that the native FPS (``native.fps_native``) is held against. Its squared
 distance sums the three axes in one fixed order, ``(dx² + dy²) + dz²``, on
 every device.
@@ -61,21 +62,35 @@ def farthest_point_sampling(
     points; deterministic, starts at index 0 like the reference
     (utils/utils.py:907-908), or at the first valid point under
     ``valid_mask``."""
-    xyz = points[:, :3].float()
-    n = xyz.shape[0]
-    dists = torch.full((n,), float("inf"), device=xyz.device)
+    mask = valid_mask[None] if valid_mask is not None else None
+    return batched_farthest_point_sampling(points[None], n_samples, mask)[0]
+
+
+def batched_farthest_point_sampling(
+    points: torch.Tensor,  # [B, N, >=3]
+    n_samples: int,
+    valid_mask: Optional[torch.Tensor] = None,  # [B, N]
+) -> torch.Tensor:
+    """``farthest_point_sampling`` of each of B clouds at once → [B, n_samples]
+    int64: one loop over the samples, each step an O(B·N) update. Ties go to
+    the lowest index (``argmax`` takes the first maximum, as ``jnp.argmax``
+    does)."""
+    xyz = points[..., :3].float()
+    b, n = xyz.shape[:2]
+    rows = torch.arange(b, device=xyz.device)
+    dists = torch.full((b, n), float("inf"), device=xyz.device)
     if valid_mask is None:
-        last = torch.zeros((), dtype=torch.int64, device=xyz.device)
+        last = torch.zeros(b, dtype=torch.int64, device=xyz.device)
     else:
         dists = torch.where(valid_mask, dists, float("-inf"))
-        last = torch.argmax(valid_mask.to(torch.uint8))
-    selected = torch.empty(n_samples, dtype=torch.int64, device=xyz.device)
-    selected[0] = last
+        last = torch.argmax(valid_mask.to(torch.uint8), dim=1)
+    selected = torch.empty((b, n_samples), dtype=torch.int64, device=xyz.device)
+    selected[:, 0] = last
     for i in range(1, n_samples):
-        sq = (xyz - xyz.index_select(0, last.view(1))).square()
-        dists = torch.minimum(dists, (sq[:, 0] + sq[:, 1]) + sq[:, 2])
-        last = torch.argmax(dists)
-        selected[i] = last
+        sq = (xyz - xyz[rows, last][:, None]).square()
+        dists = torch.minimum(dists, (sq[..., 0] + sq[..., 1]) + sq[..., 2])
+        last = torch.argmax(dists, dim=1)
+        selected[:, i] = last
     return selected
 
 

@@ -24,7 +24,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-GEOM_FEATURES = "ROADMAP.md Queue 1, item 4 (other families and contexts: preproc/geomfeat.py)"
+GEOM_FEATURES = "ROADMAP.md Queue 1, item 4b (geometry and distillation)"
 
 
 @dataclass(frozen=True)
@@ -45,8 +45,8 @@ class PreprocessParams:
 
     def __post_init__(self):
         if self.geom_features:
-            raise NotImplementedError(f"geometric feature columns are not ported yet: "
-                                      f"{GEOM_FEATURES}")
+            raise NotImplementedError("geometric feature columns (preproc/geomfeat.py) are not "
+                                      f"ported yet: {GEOM_FEATURES}")
 
 
 def process_tile(tile_path: str, params: PreprocessParams) -> Tuple[List[str], Optional[str]]:

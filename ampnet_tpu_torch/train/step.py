@@ -49,7 +49,7 @@ from ampnet_tpu_torch.train.losses import (
 )
 from ampnet_tpu_torch.train.state import TrainState
 
-DISTILL_TODO = "ROADMAP.md Queue 1, item 4 (distillation)"
+DISTILL_TODO = "ROADMAP.md Queue 1, item 4b (geometry and distillation)"
 AUGMENTATIONS = ("shuffle_windows", "rotate_z", "jitter", "scale", "shift", "point_dropout")
 
 Batch = Dict[str, torch.Tensor]

@@ -14,13 +14,16 @@
   a snapshot of the state on the device (copies, no host sync); the writer
   thread fetches and writes that snapshot, never the live tensors.
 * The eval pass runs the model in eval mode and puts it back in train mode.
+* Any model of the factory trains here; the classification task passes its
+  own steps (``train/cls_step.py``) as ``step_fns``, and its epoch metrics
+  carry the ``no_tower``/``tower`` tags.
 """
 
 from __future__ import annotations
 
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +40,7 @@ from ampnet_tpu_torch.train.state import create_train_state
 from ampnet_tpu_torch.train.step import make_step_fns
 
 IOU_TAGS = ("bckg", "tower", "cables", "low_veg", "high_veg")
+CLS_TAGS = ("no_tower", "tower")
 LOSS_KEYS = ("loss", "ce_loss", "focal_loss", "reg_loss")
 
 
@@ -55,7 +59,8 @@ def epoch_metrics(confusions: List[np.ndarray], losses: Dict[str, List[float]]) 
     accuracy from the summed confusion."""
     out = {k: float(np.mean(v)) for k, v in losses.items() if v}
     n_cls = confusions[0].shape[0]
-    tags = IOU_TAGS if n_cls == len(IOU_TAGS) else tuple(f"class{i}" for i in range(n_cls))
+    tags = IOU_TAGS if n_cls == len(IOU_TAGS) else (
+        CLS_TAGS if n_cls == 2 else tuple(f"class{i}" for i in range(n_cls)))
     per_batch = {t: [] for t in tags}
     total = np.zeros_like(confusions[0])
     for cm in confusions:
@@ -84,6 +89,7 @@ class Trainer:
         task: str = "segmentation",
         augment: bool = True,
         device="cuda",
+        step_fns: Optional[Tuple[Callable, Callable]] = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -94,7 +100,8 @@ class Trainer:
         self.task = task
         self.steps_per_epoch = max(len(train_data), 1)
         self.state = create_train_state(cfg, model, self.steps_per_epoch, self.device)
-        self.train_step, self.eval_step = make_step_fns(cfg, augment=augment)
+        # the segmentation steps unless the caller brings its own (classification)
+        self.train_step, self.eval_step = step_fns or make_step_fns(cfg, augment=augment)
         self.train_epoch, self.eval_epoch = make_epoch_fns(self.train_step, self.eval_step)
         counts = parameter_counts(model)
         print("Trainable params: " + ", ".join(f"{k}={v:,}" for k, v in counts.items()))

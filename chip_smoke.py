@@ -87,7 +87,30 @@ the run (non-zero exit, no result line) when it does not hold:
    summary JSON, 4 launches per bucket forward of its test. The ``data:``
    line prints every time, points/s, and a warm tile's host stages (read,
    HAG, split, filter) against its ``predict_many``;
-9. results -- one ``{"kernels": [...]}`` line, then as the last line
+9. families -- the GRU, classification and PointNet families at full
+   published width (global 256, GRU hidden 64, classic 1024), each command
+   through ``cli.main.main`` with ``--device cuda``, on a seeded dataset of
+   half tower, half landscape clouds (9 x 2048 windowed artifacts and
+   6,000-point wholes): (a) the dataset; (b) one train step of the GRU and
+   classic segmenters and of the attention classifier on the card against a
+   CPU copy (phase 6's tolerances); (c) ``train --epochs 2`` of gru (32 x 9 x
+   2048), baseline, classic and pointnet2 (32 clouds x 4096) and
+   ``--task classification`` of attention and baseline, with each run's warm
+   step ms, windows or clouds/s and peak GiB; (d) ``test`` of each checkpoint:
+   the segmentation row equal to a summary recomputed from ``predict_many``
+   to 1e-6 (the whole-cloud families as k = 1 buckets), the classification
+   row equal to a recount of ``CloudClassifier.predict_many`` on test's own
+   resampled points (baseline) or of the module on test's batches
+   (attention); (e) ``serve --task classification`` and ``serve`` of the GRU
+   under the default backend (``folded`` falls back to ``xla``, printed),
+   answers equal to ``predict_many``; ``test`` of an ``attention,gru``
+   ensemble (phase 6's checkpoint beside the GRU); GRU ``export`` → ``.pth``
+   → ``test`` with equal labels; ``demo --arch pointnet2`` at the verify
+   recipe; (f) ``test --backend fused`` of the GRU exits 1 with the JAX
+   message. Neither kernel launches in any of these runs (the JAX package
+   runs the families only under ``xla``). The ``families:`` line prints each
+   run's numbers beside the card;
+10. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -172,14 +195,15 @@ def chain_bound(m, n, dims, pool, return_acts):
     return (*roofline(flops, nbytes), flops, nbytes)
 
 
-def seeded_model(cfg):
-    """The flagship segmenter with seeded random weights, BatchNorm
-    statistics and T-Net output layers (Flax init leaves those zero)."""
-    from ampnet_tpu_torch.models.amp import AMPNetSegmenter
+def seeded_model(cfg, arch="attention", task="segmentation"):
+    """A model of the factory (the flagship segmenter by default) with seeded
+    random weights, BatchNorm statistics and T-Net output layers (Flax init
+    leaves those zero)."""
+    from ampnet_tpu_torch.models.factory import build_model
     from ampnet_tpu_torch.models.layers import MaskedBatchNorm, TNet
 
     g = torch.Generator().manual_seed(SEED)
-    model = AMPNetSegmenter(cfg.model, num_features=cfg.data.num_features, generator=g)
+    model = build_model(cfg, arch, task, generator=g)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, MaskedBatchNorm):
@@ -954,15 +978,39 @@ def step_batch(folder, names, dev):
     return to_device_batch(next(iter(b)), dev)
 
 
-def step_on_card_and_cpu(model, cfg, batch, dev, dtype) -> dict:
-    """One train_step in ``dtype`` on the card and on a CPU copy of ``model``,
-    same batch: how far loss, gradients, parameters and BatchNorm statistics
-    land apart. A parameter entry's sign is determined where the CPU's |g|
-    exceeds max(GRAD_NOISE, 1e-4 of its parameter's largest |g|)."""
+def biases_before_batch_norm(model) -> set:
+    """Names of the dense biases that feed a batch-statistics BatchNorm
+    (``dense`` → ``bn``, ``fc_i`` → ``fc_bn_i`` or ``bn_i``, ``head_i`` /
+    ``dense_i`` → ``bn_i``): the normalisation removes them, so their exact
+    gradient is 0 and rounding alone decides its sign."""
+    from ampnet_tpu_torch.models.layers import MaskedBatchNorm
+
+    out = set()
+    for prefix, mod in model.named_modules():
+        kids = dict(mod.named_children())
+        for name, kid in kids.items():
+            if not isinstance(kid, torch.nn.Linear) or kid.bias is None:
+                continue
+            head, _, idx = name.rpartition("_")
+            bns = ["bn"] if name == "dense" else [f"fc_bn_{idx}", f"bn_{idx}"] if head else []
+            if any(isinstance(kids.get(b), MaskedBatchNorm) for b in bns):
+                out.add(f"{prefix}.{name}.bias" if prefix else f"{name}.bias")
+    return out
+
+
+def step_on_card_and_cpu(model, cfg, batch, dev, dtype, step=None) -> dict:
+    """One train_step (``step``, else the segmentation step) in ``dtype`` on
+    the card and on a CPU copy of ``model``, same batch: how far loss,
+    gradients, parameters and BatchNorm statistics land apart. A parameter
+    entry's sign is determined where the CPU's |g| exceeds max(GRAD_NOISE,
+    1e-4 of its parameter's largest |g|); a bias that feeds a
+    batch-statistics BatchNorm (``biases_before_batch_norm``) has no
+    determined entry, and its largest |g| is reported as
+    ``cancelled_bias_grad_max``."""
     from ampnet_tpu_torch.train.state import create_train_state
     from ampnet_tpu_torch.train.step import make_step_fns
 
-    step, _ = make_step_fns(cfg, augment=False)
+    step = step or make_step_fns(cfg, augment=False)[0]
     states = {"card": create_train_state(cfg, copy.deepcopy(model).to(dev, dtype), 1, dev),
               "cpu": create_train_state(cfg, copy.deepcopy(model).to("cpu", dtype), 1, "cpu")}
     cast = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
@@ -975,18 +1023,26 @@ def step_on_card_and_cpu(model, cfg, batch, dev, dtype) -> dict:
     out = {"loss_card": loss["card"], "loss_cpu": loss["cpu"],
            "loss_rel_err": abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]),
            "grad_err_of_max": 0.0, "param_err": 0.0, "params_beyond_1e-4": 0,
-           "params_determined": 0, "undetermined_param_diff": 0.0, "noise_grad_max": 0.0}
+           "params_determined": 0, "undetermined_param_diff": 0.0, "noise_grad_max": 0.0,
+           "cancelled_bias_grad_max": 0.0}
     cpu_params = dict(states["cpu"].model.named_parameters())
+    cancelled = biases_before_batch_norm(states["cpu"].model)
     for name, p in states["card"].model.named_parameters():
         q = cpu_params[name]
         g, g_ref = p.grad.cpu().double(), q.grad.double()
         scale = g_ref.abs().max().item()
-        if scale < GRAD_NOISE:  # exactly zero in exact arithmetic: noise on both
+        if name in cancelled:  # zero in exact arithmetic, whatever rounding leaves
+            out["cancelled_bias_grad_max"] = max(out["cancelled_bias_grad_max"],
+                                                 g.abs().max().item(), scale)
+        elif scale < GRAD_NOISE:  # exactly zero in exact arithmetic: noise on both
             out["noise_grad_max"] = max(out["noise_grad_max"], g.abs().max().item(), scale)
         else:
-            out["grad_err_of_max"] = max(out["grad_err_of_max"],
-                                         (g - g_ref).abs().max().item() / scale)
+            err = (g - g_ref).abs().max().item() / scale
+            if err > out["grad_err_of_max"]:
+                out["grad_err_of_max"], out["grad_err_worst"] = err, name
         determined = g_ref.abs() > max(GRAD_NOISE, 1e-4 * scale)
+        if name in cancelled:
+            determined = torch.zeros_like(determined)
         d = (p.detach().cpu().double() - q.detach().double()).abs()
         out["params_determined"] += int(determined.sum())
         if determined.any():
@@ -1001,7 +1057,7 @@ def step_on_card_and_cpu(model, cfg, batch, dev, dtype) -> dict:
     return out
 
 
-def card_against_cpu_step(cfg, batch, dev) -> dict:
+def card_against_cpu_step(cfg, batch, dev, model=None, step=None, what="") -> dict:
     """(b): one train_step on the card against the same step on a CPU copy,
     same weights and batch, dropout 0, no augmentation.
 
@@ -1013,14 +1069,16 @@ def card_against_cpu_step(cfg, batch, dev) -> dict:
     their max: each max-pool routes a channel's gradient to one of 2048
     points, and near-ties fall to another point under another summation
     order (PERF.md §6 has the measured spread; tests/test_torch_train.py
-    holds float32 to 1e-4 at 64 points a window, against JAX)."""
-    model = seeded_model(cfg).train()
+    holds float32 to 1e-4 at 64 points a window, against JAX). ``model``
+    (else the seeded flagship) and ``step`` (else the segmentation step)
+    serve the other families."""
+    model = (model or seeded_model(cfg)).train()
     res = {}
     for name, dtype in (("float64", torch.float64), ("float32", torch.float32)):
-        r = step_on_card_and_cpu(model, cfg, batch, dev, dtype)
+        r = step_on_card_and_cpu(model, cfg, batch, dev, dtype, step)
         res[name] = r
-        _say(f"  card step against CPU step, {name}, batch {list(batch['points'].shape)}: "
-             + json.dumps(r))
+        _say(f"  {what}card step against CPU step, {name}, batch "
+             f"{list(batch['points'].shape)}: " + json.dumps(r))
         reach = 2 * r["lr"] * (1 + 1e-5)
         common = (r["loss_rel_err"] <= 1e-5 and r["undetermined_param_diff"] <= reach
                   and r["noise_grad_max"] <= 10 * GRAD_NOISE)
@@ -1030,7 +1088,7 @@ def card_against_cpu_step(cfg, batch, dev) -> dict:
             ok = (common and r["grad_err_of_max"] <= 5e-2 and r["param_err"] <= reach
                   and r["params_beyond_1e-4"] <= 1e-4 * r["params_determined"])
         if not ok:
-            raise RuntimeError(f"the card's {name} train step does not match the CPU's")
+            raise RuntimeError(f"the card's {what}{name} train step does not match the CPU's")
     return res
 
 
@@ -1802,6 +1860,386 @@ def tiles_phase(ckpt, dev, card, work, windows=TILE_WINDOWS, points=TILE_WINDOW_
     return launches
 
 
+# phase 9: the GRU, classification and PointNet families at full published
+# width (global 256, GRU hidden 64, classic 1024) on a seeded dataset of
+# half tower and half landscape clouds
+FAM_TRAIN, FAM_VAL, FAM_TEST = 64, 16, 4
+FAM_CLOUD_POINTS = 6_000  # a whole .pkl cloud: 2 windows of 4096 for the windowed families
+WHOLE_POINTS = 4096  # SingleCloudBatcher's default (JAX data/pipeline.py:251)
+FAM_RUNS = (("gru", "segmentation"), ("baseline", "segmentation"), ("classic", "segmentation"),
+            ("pointnet2", "segmentation"), ("attention", "classification"),
+            ("baseline", "classification"))
+CLS_WEIGHTS = (0.3, 0.7)  # the card-against-CPU classification step's class weights
+
+
+def write_family_dataset(folder, seed=SEED):
+    """Per cloud a ``kmeans_<name>.pt`` artifact ``[2048, 13, 9]`` (phase 6's
+    recipe) and the whole cloud ``<name>.pkl`` (FAM_CLOUD_POINTS of its
+    points). Every odd cloud is landscape: its tower and line points (raw 15,
+    14) become background, so ``classification_label`` takes both values.
+    Split lists: FAM_TRAIN / FAM_VAL / FAM_TEST clouds."""
+    from ampnet_tpu_torch.data.io_utils import save_cloud, write_split_list
+
+    thresholds = class_thresholds(np.random.default_rng(seed))  # phase 6's classes
+    rng = np.random.default_rng(seed + 11)
+    n, w = TRAIN_POINTS, TRAIN_WINDOWS
+    names = []
+    for i in range(FAM_TRAIN + FAM_VAL + FAM_TEST):
+        pc = np.empty((n, 13, w), np.float32)
+        lo = rng.uniform(0.0, 0.4, size=(2, w))
+        pc[:, 0:2] = lo + rng.uniform(0.3, 0.6, size=(2, w)) * rng.uniform(size=(n, 2, w))
+        pc[:, 2] = rng.uniform(size=(n, w)) * rng.uniform(0.2, 1.0, size=w)
+        pc[:, 9] = np.clip(rng.uniform(0.1, 0.9, size=w) + 0.25 * rng.normal(size=(n, w)), 0, 1)
+        pc[:, 4:9] = rng.uniform(size=(n, 5, w)) * rng.uniform(0.3, 1.0, size=(5, w))
+        pc[:, 10:13] = rng.uniform(0, 100, size=(n, 3, w))
+        cls = raw_class(pc[:, 2], pc[:, 9], thresholds)
+        pc[:, 3] = np.where((i % 2 == 1) & np.isin(cls, (14, 15)), 1, cls)
+        name = f"fam{i:03d}"
+        save_cloud(os.path.join(folder, f"kmeans_{name}.pt"), pc)
+        whole = pc.transpose(2, 0, 1).reshape(-1, 13)
+        save_cloud(os.path.join(folder, f"{name}.pkl"),
+                   whole[rng.permutation(len(whole))[:FAM_CLOUD_POINTS]])
+        names.append(f"{name}.pkl")
+    cut = (FAM_TRAIN, FAM_TRAIN + FAM_VAL)
+    for split, part in zip(("train", "val", "test"), (names[:cut[0]], names[cut[0]:cut[1]],
+                                                     names[cut[1]:])):
+        write_split_list(os.path.join(folder, f"{split}_seg_files.txt"), part)
+    return names
+
+
+def family_batcher(data_dir, names, arch, task, batch, dev, shuffle=True):
+    """The batcher ``train`` builds for ``arch`` on the card: windowed
+    artifacts for attention/gru, whole clouds resampled to WHOLE_POINTS for
+    the others, served from the device cache."""
+    from ampnet_tpu_torch.data.datasets import CloudDataset, WindowedCloudDataset
+    from ampnet_tpu_torch.data.device_cache import DeviceCachedBatcher
+    from ampnet_tpu_torch.data.pipeline import PaddedBatcher, SingleCloudBatcher
+
+    if arch in ("attention", "gru"):
+        b = PaddedBatcher(WindowedCloudDataset(data_dir, names, task=task), batch,
+                          n_points=TRAIN_POINTS, max_windows=TRAIN_WINDOWS, shuffle=shuffle)
+    else:
+        b = SingleCloudBatcher(CloudDataset(data_dir, names, task=task,
+                                            number_of_points=WHOLE_POINTS), batch,
+                               n_points=WHOLE_POINTS, shuffle=shuffle)
+    return DeviceCachedBatcher(b, dev)
+
+
+def first_batch(cache):
+    """The first batch of a device cache, its tensors only."""
+    return {k: v for k, v in next(iter(cache)).items() if isinstance(v, torch.Tensor)}
+
+
+def family_cfg(arch, dropout=0.3):
+    from ampnet_tpu_torch.core.config import AMPNetConfig, DataConfig, ModelConfig
+
+    windowed = arch in ("attention", "gru")
+    return AMPNetConfig(data=DataConfig(n_points=TRAIN_POINTS if windowed else WHOLE_POINTS,
+                                        max_windows=TRAIN_WINDOWS),
+                        model=ModelConfig(context=arch, dropout=dropout))
+
+
+def family_steps(data_dir, names, dev) -> dict:
+    """(b): one train step of the GRU and classic segmenters and of the
+    attention classifier on the card against the same step on a CPU copy,
+    phase 6's tolerances (float64 strict, float32 loose)."""
+    from ampnet_tpu_torch.train.cls_step import make_cls_step_fns
+
+    out = {}
+    # 8 clouds where a BatchNorm takes one row a cloud (the T-Net FC and the
+    # classifier's bn_2): at 4 rows float32 statistics are ill-conditioned
+    for arch, task, b in (("gru", "segmentation", STEP_BATCH), ("classic", "segmentation", 8),
+                          ("attention", "classification", 8)):
+        cfg = family_cfg(arch, dropout=0.0)
+        batch = first_batch(family_batcher(data_dir, names[:b], arch, task, b, dev,
+                                           shuffle=False))
+        step = (make_cls_step_fns(cfg, np.asarray(CLS_WEIGHTS, np.float32), augment=False)[0]
+                if task == "classification" else None)
+        r = card_against_cpu_step(cfg, batch, dev, model=seeded_model(cfg, arch, task),
+                                  step=step, what=f"{arch} {task}: ")
+        out[f"{arch}_{task}"] = {k: r[k]["loss_rel_err"] for k in r}
+    return out
+
+
+@contextlib.contextmanager
+def no_kernel_launches(run):
+    """Both kernels' counters set to 0 before ``run`` and read after: the
+    families run only plain torch products, as the JAX package runs them only
+    under ``xla``."""
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
+
+    counters = {"fused_mlp_chain": fused_mlp_chain, "quantized_mlp_chain": quantized_mlp_chain}
+    for fn in counters.values():
+        fn.launches = 0
+    yield
+    launched = {name: fn.launches for name, fn in counters.items()}
+    if any(launched.values()):
+        raise RuntimeError(f"{run}: kernels launched {launched}; the families run none")
+
+
+def family_cli(run, argv, expect=0):
+    """One command line through ``cli.main.main`` on the card with 0 kernel
+    launches → (stdout, stderr, probe record, wall s); the exit code must be
+    ``expect``."""
+    from ampnet_tpu_torch.cli.main import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with no_kernel_launches(run), eval_probe() as rec:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != expect:
+        raise RuntimeError(f"{run}: exited {rc}, want {expect}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue(), rec, wall
+
+
+def warm_step(data_dir, names, arch, task, dev) -> dict:
+    """ms per warm train step (default recipe, 2 warm + 3 timed on one batch
+    of TRAIN_BATCH from the device cache, host clock ending in a sync),
+    windows (windowed) or clouds per second, and peak GiB."""
+    from ampnet_tpu_torch.core.metrics import get_class_weights
+    from ampnet_tpu_torch.train.cls_step import make_cls_step_fns
+    from ampnet_tpu_torch.train.state import create_train_state
+    from ampnet_tpu_torch.train.step import make_step_fns
+
+    cfg = family_cfg(arch)
+    batch = first_batch(family_batcher(data_dir, names[:TRAIN_BATCH], arch, task, TRAIN_BATCH,
+                                       dev))
+    state = create_train_state(cfg, seeded_model(cfg, arch, task).train(), 1, dev)
+    step = (make_cls_step_fns(cfg, get_class_weights("EFS", [1, 1]))[0]
+            if task == "classification" else make_step_fns(cfg)[0])
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    b, w = batch["points"].shape[:2]
+    unit = "windows_per_sec" if arch in ("attention", "gru") else "clouds_per_sec"
+    return {"batch": list(batch["points"].shape), "step_ms": ms,
+            unit: (b * w if unit == "windows_per_sec" else b) / (ms / 1e3),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def recount_classification(csv_path, labels, targets) -> dict:
+    """The classification CSV's row against a recount from ``labels``."""
+    from ampnet_tpu_torch.train.cls_step import binary_metrics_from_confusion
+
+    cm = np.zeros((2, 2))
+    for t, p in zip(targets, labels):
+        cm[int(t), int(p)] += 1
+    want = {**binary_metrics_from_confusion(cm), "n_samples": len(labels)}
+    with open(csv_path) as f:
+        header, row = f.read().splitlines()[:2]
+    got = dict(zip(header.split(","), row.split(",")))
+    for k, v in want.items():
+        if abs(float(got[k]) - v) > 1e-12:
+            raise RuntimeError(f"{csv_path}: {k} = {got[k]}, recounted {v}")
+    if not np.isfinite(float(got["pr_auc"])):
+        raise RuntimeError(f"{csv_path}: pr_auc {got['pr_auc']}")
+    return {k: float(got[k]) for k in ("accuracy", "f1", "pr_auc")}
+
+
+def families_phase(attention_ckpt, dev, card, work) -> dict:
+    """Phase 9: (a) a seeded half-landscape dataset; (b) card-against-CPU
+    steps (``family_steps``); (c) ``train --epochs 2`` of every run of
+    FAM_RUNS; (d) ``test`` of each checkpoint against ``predict_many`` (the
+    whole-cloud families as k = 1 buckets) or, for classification, against a
+    recount of ``CloudClassifier.predict_many`` (baseline: the same resampled
+    points) or of the module on the test batches (attention: its windows);
+    (e) ``serve --task classification`` and ``serve`` of the GRU under the
+    default backend (the printed ``folded`` → ``xla`` fallback), answers =
+    ``predict_many``; ``test`` of an ``attention,gru`` ensemble; GRU
+    ``export`` → ``.pth`` → ``test``, labels equal; ``demo --arch pointnet2``;
+    (f) ``--backend fused`` with the GRU checkpoint exits 1. Every run
+    launches neither kernel. Prints the ``families:`` line."""
+    from ampnet_tpu_torch.core.checkpoint import load_model
+    from ampnet_tpu_torch.data.datasets import (
+        CloudDataset,
+        EvalCloudDataset,
+        WindowedCloudDataset,
+    )
+    from ampnet_tpu_torch.data.pipeline import PaddedBatcher, to_device_batch
+    from ampnet_tpu_torch.infer.classify import CloudClassifier
+    from ampnet_tpu_torch.infer.tiled import TiledInferencer
+
+    t_phase = time.perf_counter()
+    data = os.path.join(work, "families")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    names = write_family_dataset(data)
+    test_names = names[FAM_TRAIN + FAM_VAL:]
+    _say(f"  (a) wrote {len(names)} clouds ({TRAIN_WINDOWS} x {TRAIN_POINTS} windows and "
+         f"{FAM_CLOUD_POINTS}-point wholes, half landscape) in {time.perf_counter() - t0:.2f} s")
+    line = {"card": card, "steps_loss_rel_err": family_steps(data, names, dev), "runs": {}}
+    dev_arg = ["--device", str(dev)]
+    test_base = ["test", data, "--path_list_files", data, *dev_arg]
+    test_ds = EvalCloudDataset(data, test_names)
+    samples = [test_ds[i] for i in range(len(test_ds))]
+    ckpts = {}
+    for arch, task in FAM_RUNS:
+        run = f"{arch}_{task}"
+        out_dir = os.path.join(work, f"fam_{run}")
+        windowed = arch in ("attention", "gru")
+        points = TRAIN_POINTS if windowed else WHOLE_POINTS
+        stdout, _, _, wall = family_cli(f"train {run}", [
+            "train", data, "--path_list_files", data, "--out_path", out_dir, "--arch", arch,
+            "--task", task, "--epochs", "2", "--batch_size", str(TRAIN_BATCH),
+            "--number_of_points", str(points), "--number_of_windows", str(TRAIN_WINDOWS),
+            "--seed", str(SEED), *dev_arg])
+        last = last_json(stdout[:stdout.rindex("}") + 1])
+        if not np.isfinite(last["loss"]):
+            raise RuntimeError(f"train {run}: {last}")
+        ckpt = ckpts[run] = os.path.join(out_dir, "checkpoints", f"{run}_best")
+        rec_line = {"train_wall_s": wall, "val_loss": last["loss"],
+                    **warm_step(data, names[:FAM_TRAIN], arch, task, dev)}
+        cfg, model = load_model(ckpt, dev)
+        if task == "segmentation":
+            stdout, _, rec, wall = family_cli(f"test {run}", [*test_base, "--model_checkpoint",
+                                                              ckpt, "--out_path", out_dir])
+            direct = TiledInferencer(model, cfg, max_clusters=18 if windowed else 1, device=dev)
+            labels = direct.predict_many([s["points"] for s in samples],
+                                         seeds=list(range(len(samples))))
+            if len(rec["labels"]) != len(samples) or not all(
+                    np.array_equal(a, b) for a, b in zip(labels, rec["labels"])):
+                raise RuntimeError(f"test {run}: labels differ from predict_many")
+            want = summary_of(labels, samples, cfg.model.num_classes)
+            with open(os.path.join(out_dir, "IoU-results.csv")) as f:
+                header, row = f.read().splitlines()[:2]
+            same_summary(f"{run} IoU-results.csv", dict(zip(header.split(","), row.split(","))),
+                         want)
+            summary = last_json(stdout)
+            same_summary(f"{run} summary", summary, want)
+            rec_line.update(test_points_per_sec=summary["points_per_sec"], miou=summary["miou"],
+                            test_wall_s=wall, bucket_forwards=rec["forwards"])
+        else:
+            _, _, _, wall = family_cli(f"test {run}", [*test_base, "--task", task,
+                                                       "--model_checkpoint", ckpt,
+                                                       "--out_path", out_dir])
+            if windowed:  # the module on test's own batches (all the windows)
+                b = PaddedBatcher(WindowedCloudDataset(data, test_names, task=task), 4,
+                                  n_points=cfg.data.n_points, max_windows=cfg.data.max_windows,
+                                  shuffle=False, drop_last=False)
+                batches = [to_device_batch(x, dev) for x in b]
+                with torch.no_grad():
+                    labels = torch.cat([model(x["points"], x.get("centroids"),
+                                              (x["labels"] == -1).all(-1))[0].argmax(-1)
+                                        for x in batches]).cpu().numpy()
+                targets = torch.cat([x["cls_label"] for x in batches]).cpu().numpy()
+            else:  # CloudClassifier on the points test resampled (no second draw)
+                ds = CloudDataset(data, test_names, task=task, number_of_points=WHOLE_POINTS)
+                items = [ds[i] for i in range(len(ds))]
+                labels = np.concatenate(CloudClassifier(model, cfg, device=dev).predict_many(
+                    [s["points"] for s in items]))
+                targets = np.asarray([s["cls_label"] for s in items])
+            rec_line.update(recount_classification(
+                os.path.join(out_dir, "classification-results.csv"), labels, targets),
+                test_wall_s=wall, test_clouds_per_sec=len(test_names) / wall)
+        line["runs"][run] = rec_line
+        _say(f"  (c-d) {run}: " + json.dumps(rec_line))
+    line.update(family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work))
+    line["phase_s"] = time.perf_counter() - t_phase
+    _say("families: " + json.dumps(line))
+    _say(f"  families phase: {line['phase_s']:.2f} s")
+    return line
+
+
+def family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work) -> dict:
+    """(e)-(f) of phase 9."""
+    from ampnet_tpu_torch.cli.main import NON_XLA, build_parser, make_server
+    from ampnet_tpu_torch.core.checkpoint import load_model
+    from ampnet_tpu_torch.infer.classify import CloudClassifier
+    from ampnet_tpu_torch.infer.tiled import EnsembleInferencer, TiledInferencer
+
+    out = {}
+    rng = np.random.default_rng(SEED + 13)
+    clouds = [samples[i]["points"][rng.permutation(FAM_CLOUD_POINTS)[:n]]
+              for i, n in ((0, 3_000), (1, 6_000), (2, 4_500), (3, 6_000))]
+
+    def served(run, argv, requests):
+        err = io.StringIO()
+        with no_kernel_launches(run), contextlib.redirect_stderr(err):
+            server = make_server(build_parser().parse_args(
+                ["serve", *argv, "--device", str(dev), "--host", "127.0.0.1", "--port", "0"]))
+            thread = threading.Thread(target=server.httpd.serve_forever, daemon=True)
+            thread.start()
+            try:
+                host, port = server.address
+                answers = [json.loads(_post(f"http://{host}:{port}/v1/predict",
+                                            json.dumps({"clouds": [c.tolist() for c in r]})
+                                            .encode(), "application/json"))["labels"]
+                           for r in requests]
+                inf = server.service.inferencer
+                for r, a in zip(requests, answers):  # each request is one micro-batch
+                    want = inf.predict_many(r, seeds=[0] * len(r))
+                    if [list(x) for x in a] != [w.tolist() for w in want]:
+                        raise RuntimeError(f"{run}: served labels differ from predict_many")
+            finally:
+                server.close()
+                thread.join(timeout=60)
+        return err.getvalue(), inf
+
+    requests = [clouds[:2], clouds[2:]]
+    err, inf = served("serve classification", ["--model_checkpoint",
+                                               ckpts["attention_classification"],
+                                               "--task", "classification"], requests)
+    if not isinstance(inf, CloudClassifier):
+        raise RuntimeError(f"serve --task classification built {type(inf).__name__}")
+    err, inf = served("serve gru", ["--model_checkpoint", ckpts["gru_segmentation"]],
+                      [[c] for c in clouds[:2]])
+    if "backend 'folded' is attention-only; serving with 'xla'" not in err or inf.backend != "xla":
+        raise RuntimeError(f"serve of the GRU checkpoint: no folded -> xla fallback: {err}")
+    out["served"] = {"classification_requests": 2, "gru_requests": 2, "folded_to_xla": True}
+    # an attention,gru ensemble: phase 6's attention checkpoint and the GRU's
+    gru = ckpts["gru_segmentation"]
+    stdout, _, _, wall = family_cli("test attention,gru", [
+        *test_base, "--model_checkpoint", f"{attention_ckpt},{gru}",
+        "--out_path", os.path.join(work, "fam_ensemble")])
+    members = []
+    for ckpt in (attention_ckpt, gru):
+        cfg, model = load_model(ckpt, dev)
+        members.append(TiledInferencer(model, cfg, max_clusters=18, device=dev))
+    labels = EnsembleInferencer(members).predict_many([s["points"] for s in samples],
+                                                      seeds=list(range(len(samples))))
+    summary = last_json(stdout)
+    same_summary("attention,gru ensemble", summary,
+                 summary_of(labels, samples, members[0].cfg.model.num_classes))
+    out["ensemble"] = {"miou": summary["miou"], "wall_s": wall}
+    # the GRU through its reference .pth: the same labels
+    pth = os.path.join(work, "fam_gru.pth")
+    family_cli("export gru", ["export", "--model_checkpoint", gru, "--out", pth,
+                              "--device", str(dev)])
+    _, _, rec_dir, _ = family_cli("test gru", [*test_base, "--model_checkpoint", gru,
+                                               "--out_path", os.path.join(work, "fam_g1")])
+    _, _, rec_pth, _ = family_cli("test gru.pth", [*test_base, "--model_checkpoint", pth,
+                                                   "--arch", "gru",
+                                                   "--out_path", os.path.join(work, "fam_g2")])
+    if not all(np.array_equal(a, b) for a, b in zip(rec_dir["labels"], rec_pth["labels"])) \
+            or len(rec_pth["labels"]) != len(samples):
+        raise RuntimeError("the GRU's exported .pth labels differently from its checkpoint")
+    # (f) the backend gate
+    _, err, _, _ = family_cli("test gru --backend fused",
+                              [*test_base, "--model_checkpoint", gru, "--backend", "fused"],
+                              expect=1)
+    if NON_XLA not in err:
+        raise RuntimeError(f"test --backend fused of the GRU: {err}")
+    # demo --arch pointnet2 at the verify recipe, on the card
+    stdout, _, _, wall = family_cli("demo pointnet2", [
+        "demo", "--out_path", os.path.join(work, "fam_demo"), "--arch", "pointnet2",
+        *DEMO_ARGS, "--device", str(dev)])
+    summary = last_json(stdout)
+    if not np.isfinite(summary["miou"]):
+        raise RuntimeError(f"demo --arch pointnet2: {summary}")
+    out["demo_pointnet2"] = {"wall_s": wall, "miou": summary["miou"]}
+    return out
+
+
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, and the host
     solver by ``g++``, all started together, and loaded."""
@@ -1833,39 +2271,42 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     _say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    _say("[1/9] card")
+    _say("[1/10] card")
     card = card_line()
     _say(card)
 
-    _say("[2/9] build")
+    _say("[2/10] build")
     build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
-    _say("[3/9] kernels against their plain versions")
+    _say("[3/10] kernels against their plain versions")
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/9] model: fused and int8 against the module forward")
+    _say("[4/10] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
-    _say("[5/9] serve")
+    _say("[5/10] serve")
     runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
     cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as work:
-        _say("[6/9] train")
+        _say("[6/10] train")
         train_launches, ckpt = train_phase(dev, card, work)
 
-        _say("[7/9] evaluate")
+        _say("[7/10] evaluate")
         eval_launches = evaluate_phase(ckpt, dev, card, work)
 
-        _say("[8/9] tiles: host data stages, whole-tile infer, demo")
+        _say("[8/10] tiles: host data stages, whole-tile infer, demo")
         eval_launches.update(tiles_phase(ckpt, dev, card, work))
 
-    _say("[9/9] results")
+        _say("[9/10] families: gru, classification, baseline, classic, pointnet2")
+        families_phase(ckpt, dev, card, work)
+
+    _say("[10/10] results")
     # launches only where the serving runs counted them: each kernel in both
     # runs, and each serving chain once per bucket forward that ran it (its M
     # there is 18 x clouds in the bucket); the other cases are shapes the
@@ -1878,6 +2319,7 @@ def main() -> int:
         for run, counts in eval_launches.items():  # the phase 7-8 runs that launch it
             if {**EVAL_RUNS, **TILE_RUNS}[run][name]:
                 total["launches_by_run"][run] = counts[name]
+        total["launches_by_run"]["families"] = 0  # phase 9 checked 0 on every run
         total["launches"] = sum(total["launches_by_run"].values())
     tnets = ("serve:input_tnet", "serve:feature_tnet")  # the T-Nets run under both backends
     for row in fused_cases:

@@ -309,8 +309,8 @@ def test_trainer_train_and_serve_default_to_the_card(tmp_path, small_cfg, monkey
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--task", "classification"], "item 4"),
-    (["--arch", "gru"], "item 4"),
+    (["--arch", "gru", "--att_geom_tokens"], "item 4"),
+    (["--task", "classification", "--local_agg", "edge"], "item 4"),
     (["--num_devices", "2"], "item 5"),
     (["--distill_from", "a,b"], "item 4"),
     (["--local_agg", "edge"], "item 4"),

@@ -168,8 +168,8 @@ def test_cli_export_equals_the_jax_export(tmp_path):
     assert main(["export", "--model_checkpoint", pth, "--out", str(tmp_path / "again.pth"),
                  "--device", "cpu"]) == 0
     assert load_reference_pth(str(tmp_path / "again.pth"))[1]["number_of_points"] == 32
-    with pytest.raises(NotImplementedError, match="item 4"):
-        save_reference_pth({"params": {"context": {"gru": {}}}}, str(tmp_path / "gru.pth"))
+    with pytest.raises(NotImplementedError, match="attention/gru segmenters"):
+        save_reference_pth({"params": {"context": {}}}, str(tmp_path / "other.pth"))
 
 
 def jax_leaves(tree, prefix=()):
@@ -226,15 +226,16 @@ def test_grouping_and_refusals(tmp_path, capsys):
     assert main(["test", *base, "--model_checkpoint", f"{d5},{d3}"]) == 1
     assert "disagree on num_classes: [3, 5]" in capsys.readouterr().err
     for argv, item in ((["test", *base, "--model_checkpoint", a, "--task", "classification"],
-                        "item 4"),
-                       (["test", *base, "--model_checkpoint", a, "--arch", "gru"], "item 4"),
-                       (["infer", str(tmp_path), "--model_checkpoint", a, "--arch", "gru"],
-                        "item 4"),
-                       (["export", "--model_checkpoint", a, "--out", "x.pth", "--arch", "gru"],
-                        "item 4"),
+                        "attention/gru segmenters"),
+                       (["test", *base, "--model_checkpoint", a, "--arch", "baseline"],
+                        "attention/gru segmenters"),
+                       (["test", *base, "--model_checkpoint", d5, "--task",
+                         "classification"], "is a segmentation checkpoint"),
+                       (["test", *base, "--model_checkpoint", f"{a},{c}", "--task",
+                         "classification"], "ensembles support segmentation only"),
                        (["serve", "--model_checkpoint", a, "--num_devices", "2"], "item 5"),
-                       (["serve", "--model_checkpoint", a, "--task", "classification"],
-                        "item 4")):
+                       (["serve", "--model_checkpoint", a, "--task", "classification",
+                         "--device", "cpu"], "attention/gru segmenters")):
         assert main(argv) == 1, argv
         assert item in capsys.readouterr().err, argv
 

@@ -181,7 +181,7 @@ def test_geometry_checkpoints_and_other_families_refused(weights, tiles, tmp_pat
     tt.cfg = geom
     with pytest.raises(NotImplementedError, match="item 4"):
         predict_tile(tt, read_las(tiles[0]))
-    for flags in (["--arch", "gru"], ["--geom_features"]):
+    for flags in (["--arch", "gru", "--geom_features"], ["--geom_features"]):
         assert main(["demo", "--out_path", str(tmp_path), "--device", "cpu", *flags]) == 1
         assert "item 4" in capsys.readouterr().err
     assert not os.listdir(tmp_path)

@@ -143,9 +143,11 @@ def test_backend_refusals():
 
 
 def test_unported_model_options_raise():
-    for kw in ({"context": "gru"}, {"local_agg": "edge"}, {"att_geom_tokens": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in ({"local_agg": "edge"}, {"att_geom_tokens": True},
+               {"context": "gru", "att_geom_tokens": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 4b"):
             AMPNetSegmenter(ModelConfig(**kw))
+    AMPNetSegmenter(ModelConfig(context="gru"))  # the GRU context is ported
     # training mode runs (the training slice); its dropout draws only from
     # an explicit generator
     model = AMPNetSegmenter(ModelConfig()).train()
