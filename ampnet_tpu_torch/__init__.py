@@ -11,16 +11,19 @@ core      config dataclasses, device selection, weights carried across (Flax
 data      schema, artifact loaders, LAS I/O, synthetic scenes, windowed
           datasets, padded batchers and the GPU-resident dataset cache
 preproc   offline LAS → windows stages: window split, height above ground,
-          filter and normalise, balanced k-means tiling, split lists
+          filter and normalise, eigenfeature columns, balanced k-means
+          tiling, split lists
 native    the host min-cost-flow solver and FPS (C++ in ``csrc/``, ctypes)
 models    every family of the factory (AMP-Net attention and GRU segmenters
-          and classifiers, classic / light PointNet, PointNet++;
-          ``nn.Module``, train and eval) and the inference backends
+          and classifiers with the kNN edge block and geometry tokens, classic
+          / light PointNet, PointNet++; ``nn.Module``, train and eval) and the
+          inference backends
 ops       balanced k-means tiling; sampling (FPS); augmentation;
           ``fused_mlp_chain`` and ``quantized_mlp_chain`` (CUDA kernels in
           ``csrc/`` + their plain PyTorch versions)
 train     losses, train state (Adam + schedule), segmentation and
-          classification train/eval steps, the epoch loop and the Trainer
+          classification train/eval steps, in-step distillation, the epoch
+          loop and the Trainer
 infer     tiled whole-cloud and whole-tile LAS inference, evaluation, cloud
           classification and the HTTP server
 cli       ``python -m ampnet_tpu_torch synth|preprocess|fps|train|test|infer|

@@ -26,9 +26,13 @@ The windowed families (attention, gru) tile a cloud into windows; baseline,
 classic and pointnet2 evaluate the whole cloud as one window (k = 1). Only
 the attention segmenter runs under the non-``xla`` backends, as in the JAX
 package: the others are refused there, except that ``serve``'s default
-``folded`` falls back to ``xla`` and says so. Options of the JAX command line
-that the port does not cover yet exit 1 with the ROADMAP.md item that owns
-them.
+``folded`` falls back to ``xla`` and says so. A checkpoint trained on the
+geometric feature columns (``train --geom_features``) reads them on every
+command: the datasets select them, the wire of ``serve`` carries them, and
+whole-tile ``infer`` recomputes them. The edge block and the geometry tokens
+run only under ``xla``, as in the JAX package. Options of the JAX command
+line that the port does not cover yet exit 1 with the ROADMAP.md item that
+owns them.
 """
 
 from __future__ import annotations
@@ -41,7 +45,6 @@ import sys
 
 from ampnet_tpu_torch.models.backends import BACKENDS
 
-GEOMETRY = "ROADMAP.md Queue 1, item 4b (geometry and distillation)"
 PARALLEL = "ROADMAP.md Queue 1, item 5 (parallel)"
 TRAIN_REST = "ROADMAP.md Queue 1, item 7 (training options)"
 NON_XLA = ("non-xla backends (folded/bf16/fused/int8) support the attention segmenter only; "
@@ -148,14 +151,33 @@ def _make_seg_inferencer(groups, args, device, max_clusters, backend: str):
     from ampnet_tpu_torch.infer.tiled import EnsembleInferencer, TiledInferencer
     from ampnet_tpu_torch.models.factory import WINDOWED
 
-    members = [
-        TiledInferencer(models if len(models) > 1 else models[0], cfg,
-                        max_clusters=max_clusters if cfg.model.context in WINDOWED else 1,
-                        backend=backend, tiler=args.tiler,
-                        transfer_dtype=args.transfer_dtype, device=device)
-        for cfg, models in groups
-    ]
+    try:
+        members = [
+            TiledInferencer(models if len(models) > 1 else models[0], cfg,
+                            max_clusters=max_clusters if cfg.model.context in WINDOWED else 1,
+                            backend=backend, tiler=args.tiler,
+                            transfer_dtype=args.transfer_dtype, device=device)
+            for cfg, models in groups
+        ]
+    except ValueError as e:  # a backend that cannot run the model (make_forward's gates)
+        raise Refused(str(e)) from e
     return members[0] if len(members) == 1 else EnsembleInferencer(members)
+
+
+def _extra_features(groups) -> int:
+    """The members' geometric column count; members that disagree on it are
+    refused (the JAX commands ``test`` and ``infer``)."""
+    extras = {cfg.data.extra_features for cfg, _ in groups}
+    if len(extras) > 1:
+        raise Refused("ensemble members disagree on extra_features (geom columns); "
+                      "mix only models trained on the same input schema")
+    return extras.pop()
+
+
+def _check_geom_k(k: int, flag: str = "--geom_k") -> None:
+    # refused, not coerced to the default as the JAX command line does
+    if k < 1:
+        raise Refused(f"{flag} must be >= 1, got {k}")
 
 
 def _refuse_ensemble(args, task: str) -> None:
@@ -321,7 +343,7 @@ def cmd_preprocess(args) -> int:
     from ampnet_tpu_torch.preproc.pipeline import PreprocessParams, run_pipeline
     from ampnet_tpu_torch.preproc.splits import generate_split_lists
 
-    _refuse_unported([(args.geom_features, "--geom_features", GEOMETRY)])
+    _check_geom_k(args.geom_k)
     if args.assigner == "sinkhorn":  # on the card unless --device cpu: checked up front
         from ampnet_tpu_torch.core.device import resolve_device
 
@@ -336,6 +358,8 @@ def cmd_preprocess(args) -> int:
         max_z=args.max_z, min_points=args.min_points, n_points=args.n_points,
         max_windows=args.max_windows, hag_cell=args.hag_cell,
         artifact_format=args.artifact_format, assigner=args.assigner, device=args.device,
+        geom_features=args.geom_features, geom_k=args.geom_k,
+        geom_radius_norm=args.geom_radius_norm,
     )
     produced, errors = run_pipeline(tiles, params, workers=args.workers)
     for e in errors:
@@ -407,10 +431,6 @@ def _refuse_train_options(args) -> None:
     JAX command refuses for classification."""
     _refuse_unported([
         (args.num_devices > 1, f"--num_devices {args.num_devices}", PARALLEL),
-        (bool(args.distill_from), "--distill_from", GEOMETRY),
-        (args.local_agg != "none", f"--local_agg {args.local_agg}", GEOMETRY),
-        (args.geom_features, "--geom_features", GEOMETRY),
-        (args.att_geom_tokens, "--att_geom_tokens", GEOMETRY),
         (args.dtype != "float32", f"--dtype {args.dtype}", TRAIN_REST),
         (args.oversample_factor > 1, f"--oversample_factor {args.oversample_factor}", TRAIN_REST),
         (bool(args.seg_weighing), "--seg_weighing", TRAIN_REST),
@@ -427,6 +447,23 @@ def _refuse_train_options(args) -> None:
     if args.task == "classification" and args.focal_gamma > 0:
         raise Refused("--focal_gamma is segmentation-only (make_cls_step_fns builds its own "
                       "weighted-CE objective)")
+    _check_geom_k(args.geom_k)
+    _check_geom_k(args.local_agg_k, "--local_agg_k")
+    if args.distill_from and args.task == "classification":
+        raise Refused("--distill_from is segmentation-only (per-point soft targets)")
+
+
+def _restore_teacher(args, device):
+    """The ``--distill_from`` checkpoints as teacher groups ``[(cfg, [model,
+    ...]), ...]`` (``_restore_groups``: cross-family groups work), or None."""
+    if not args.distill_from:
+        return None
+    teacher, _ = _restore_groups(argparse.Namespace(model_checkpoint=args.distill_from,
+                                                    arch=args.arch), device)
+    n_members = sum(len(models) for _, models in teacher)
+    print(f"distilling from {n_members} teacher member(s) in {len(teacher)} group(s): "
+          f"alpha={args.distill_alpha}, T={args.distill_temp}", file=sys.stderr)
+    return teacher
 
 
 def cmd_train(args) -> int:
@@ -435,7 +472,9 @@ def cmd_train(args) -> int:
     ``WindowedCloudDataset`` + ``PaddedBatcher``; baseline, classic and
     pointnet2 read whole clouds through ``CloudDataset`` +
     ``SingleCloudBatcher``. Classification trains with ``make_cls_step_fns``
-    and class weights from the train split's tower/landscape counts."""
+    and class weights from the train split's tower/landscape counts. With
+    ``--distill_from`` the batches carry the widest column set a teacher or
+    the student reads, and the student reads its own prefix."""
     import numpy as np
     import torch
 
@@ -447,20 +486,39 @@ def cmd_train(args) -> int:
     from ampnet_tpu_torch.data.device_cache import maybe_device_cache
     from ampnet_tpu_torch.data.pipeline import PaddedBatcher, SingleCloudBatcher
     from ampnet_tpu_torch.models.factory import WINDOWED, build_model
+    from ampnet_tpu_torch.preproc.geomfeat import N_GEOM_FEATURES
     from ampnet_tpu_torch.train.cls_step import make_cls_step_fns
     from ampnet_tpu_torch.train.trainer import Trainer
 
     _refuse_train_options(args)
     device = resolve_device(args.device)
     cfg = AMPNetConfig(
-        data=DataConfig(n_points=args.number_of_points, max_windows=args.number_of_windows),
-        model=ModelConfig(context=args.arch, bn_mode=args.bn_mode),
+        data=DataConfig(n_points=args.number_of_points, max_windows=args.number_of_windows,
+                        extra_features=N_GEOM_FEATURES if args.geom_features else 0,
+                        geom_radius_norm=args.geom_radius_norm, geom_k=args.geom_k),
+        model=ModelConfig(context=args.arch, bn_mode=args.bn_mode, local_agg=args.local_agg,
+                          local_agg_k=args.local_agg_k, att_geom_tokens=args.att_geom_tokens),
         train=TrainConfig(batch_size=args.batch_size, learning_rate=args.learning_rate,
                           epochs=args.epochs, weighing_method=args.weighing_method,
                           seed=args.seed, grad_accum=args.grad_accum,
                           focal_gamma=args.focal_gamma,
-                          async_checkpoint=args.ckpt_io != "sync"),
+                          async_checkpoint=args.ckpt_io != "sync",
+                          distill_alpha=args.distill_alpha if args.distill_from else 0.0,
+                          distill_temp=args.distill_temp),
     )
+    teacher = _restore_teacher(args, device)
+    # the batch carries the widest column set any consumer reads: a geometric
+    # teacher distilling into a plain student loads 15 columns, of which the
+    # student reads its first 9 (train/step.py::_forward)
+    batch_extra = cfg.data.extra_features
+    if teacher is not None:
+        teacher_extra = max(t_cfg.data.extra_features for t_cfg, _ in teacher)
+        if teacher_extra > batch_extra:
+            batch_extra = teacher_extra
+            print(f"teacher reads {teacher_extra} extra geom columns; loading them for the "
+                  f"teacher while the student trains on its own "
+                  f"{cfg.data.num_features + cfg.data.extra_features}-column schema",
+                  file=sys.stderr)
     lists = _load_lists(args.path_list_files, args.task)
     if not lists["train"]:
         print(f"empty train list in {args.path_list_files}", file=sys.stderr)
@@ -472,9 +530,9 @@ def cmd_train(args) -> int:
     def dataset(split):
         if windowed:
             return WindowedCloudDataset(args.dataset_path, lists[split], task=args.task,
-                                        noise_classes=noise)
+                                        noise_classes=noise, extra_features=batch_extra)
         return CloudDataset(args.dataset_path, lists[split], task=args.task,
-                            number_of_points=args.number_of_points)
+                            number_of_points=args.number_of_points, extra_features=batch_extra)
 
     def batcher(ds, seed):
         if ds is None:
@@ -500,7 +558,7 @@ def cmd_train(args) -> int:
     trainer = Trainer(cfg, model, batcher(train_ds, cfg.train.seed),
                       batcher(val_ds, cfg.train.seed + 1), args.out_path,
                       name=f"{args.arch}_{args.task}", task=args.task, device=device,
-                      step_fns=step_fns)
+                      step_fns=step_fns, teacher=teacher)
     try:
         if args.model_checkpoint and not trainer.resume(args.model_checkpoint):
             print(f"no checkpoint {args.model_checkpoint!r} under {trainer.ckpt.directory}",
@@ -531,9 +589,10 @@ def cmd_test(args) -> int:
     _check_figures(args, ("plot", "analysis"))
     device = resolve_device(args.device)
     groups, name = _restore_groups(args, device)
+    extra = _extra_features(groups)
     _check_backend(groups, args.backend)
     lists = _load_lists(args.path_list_files)
-    ds = EvalCloudDataset(args.dataset_path, lists["test"] or lists["val"])
+    ds = EvalCloudDataset(args.dataset_path, lists["test"] or lists["val"], extra_features=extra)
     inferencer = _make_seg_inferencer(groups, args, device, args.max_clusters, args.backend)
     out = evaluate_dataset(
         inferencer, ds, out_csv=os.path.join(args.out_path, "IoU-results.csv"),
@@ -564,13 +623,15 @@ def run_classification_test(args, device) -> int:
     lists = _load_lists(args.path_list_files, args.task)
     files = lists["test"] or lists["val"]
     if cfg.model.context in WINDOWED:
-        ds = WindowedCloudDataset(args.dataset_path, files, task=args.task)
+        ds = WindowedCloudDataset(args.dataset_path, files, task=args.task,
+                                  extra_features=cfg.data.extra_features)
         batcher = PaddedBatcher(ds, 4, n_points=cfg.data.n_points,
                                 max_windows=cfg.data.max_windows, shuffle=False,
                                 drop_last=False)
     else:
         ds = CloudDataset(args.dataset_path, files, task=args.task,
-                          number_of_points=cfg.data.n_points)
+                          number_of_points=cfg.data.n_points,
+                          extra_features=cfg.data.extra_features)
         batcher = SingleCloudBatcher(ds, 4, n_points=cfg.data.n_points, shuffle=False,
                                      drop_last=False)
     _, eval_step = make_cls_step_fns(cfg)
@@ -600,6 +661,7 @@ def cmd_infer(args) -> int:
     _check_figures(args, ("save_probs",))
     device = resolve_device(args.device)
     groups, _ = _restore_groups(args, device)
+    extra = _extra_features(groups)
     _check_backend(groups, args.backend)
     inferencer = _make_seg_inferencer(groups, args, device, None, args.backend)
     if las_tiles:
@@ -610,7 +672,8 @@ def cmd_infer(args) -> int:
     os.makedirs(args.out_path, exist_ok=True)
     for idx in eval_chunks(len(ds), args.tta * args.tile_votes):
         chunk = [ds[i] for i in idx]
-        feats = [normalize_xy_neg_one(select_model_features(s["points"])) for s in chunk]
+        feats = [normalize_xy_neg_one(select_model_features(s["points"], extra))
+                 for s in chunk]
         outs = predict_chunk(inferencer, feats, list(idx), args.tta, args.tile_votes,
                              return_probs=args.save_probs)
         for sample, out in zip(chunk, outs):
@@ -671,23 +734,24 @@ def cmd_export(args) -> int:
 def cmd_demo(args) -> int:
     """End-to-end on synthetic data, each stage through its own command:
     synth → preprocess → train ``--arch`` → test (prints ``test``'s summary
-    JSON)."""
+    JSON); ``--geom_features`` preprocesses and trains with the geometric
+    columns."""
     from ampnet_tpu_torch.core.device import resolve_device
 
-    _refuse_unported([(args.geom_features, "--geom_features", GEOMETRY)])
     resolve_device(args.device)  # before any stage: the card unless --device cpu
     base, dev = args.out_path, ["--device", args.device]
     las, data, run = (os.path.join(base, d) for d in ("las", "data", "run"))
     npts = str(args.number_of_points)
+    geom = ["--geom_features"] if args.geom_features else []
     max_clusters = max(6, args.points_per_window // args.number_of_points + 1)
     stages = [
         ["synth", "--out_path", las, "--n_tiles", str(args.n_tiles), "--windows_per_tile", "3",
          "--points_per_window", str(args.points_per_window), "--seed", "0"],
         ["preprocess", "--in_path", las, "--out_path", data, "--dataset", "SYNTH",
-         "--min_points", "256", "--n_points", npts, "--max_windows", "5", "--seed", "0"],
+         "--min_points", "256", "--n_points", npts, "--max_windows", "5", "--seed", "0", *geom],
         ["train", data, "--path_list_files", data, "--out_path", run, "--arch", args.arch,
          "--number_of_points", npts, "--number_of_windows", "5", "--batch_size", "2",
-         "--epochs", str(args.epochs), "--seed", "0", *dev],
+         "--epochs", str(args.epochs), "--seed", "0", *geom, *dev],
         ["test", data, "--path_list_files", data, "--out_path", run, "--model_checkpoint",
          os.path.join(run, "checkpoints", f"{args.arch}_segmentation_best"), "--arch", args.arch,
          "--max_clusters", str(max_clusters), "--backend", args.backend, *dev],
@@ -777,7 +841,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "containing a block name join that split instead of the "
                         "random split")
     s.add_argument("--geom_features", action="store_true",
-                   help="not ported yet (refused)")
+                   help="append per-point covariance eigenfeatures (linearity, planarity, "
+                        "scatter, verticality, axis_z, radius) computed at full density as "
+                        "columns 13..18; pair with `train --geom_features`")
+    s.add_argument("--geom_k", type=int, default=24,
+                   help="k-NN neighbourhood size for --geom_features (>= 1)")
+    s.add_argument("--geom_radius_norm", choices=["absolute", "median"], default="absolute",
+                   help="radius-column normalisation: 'median' divides each point's k-th-NN "
+                        "distance by the cloud's median (invariant to uniform density "
+                        "changes); pair with the same flag on `train`")
     s.set_defaults(fn=cmd_preprocess)
 
     s = sub.add_parser("fps", help="farthest-point-sample clouds to a fixed size "
@@ -825,12 +897,35 @@ def build_parser() -> argparse.ArgumentParser:
                    default="attention",
                    help="attention / gru: windowed k-means artifacts; baseline / classic / "
                         "pointnet2: whole .pkl clouds resampled to --number_of_points")
+    s.add_argument("--geom_features", action="store_true",
+                   help="feed the geometric eigenfeature columns (a dataset preprocessed "
+                        "with `preprocess --geom_features`); recorded in the checkpoint, so "
+                        "test / infer / serve read them too")
+    s.add_argument("--geom_k", type=int, default=24,
+                   help="the k-NN size the dataset's geom columns were preprocessed with "
+                        "(>= 1): whole-tile infer recomputes the columns with it")
+    s.add_argument("--geom_radius_norm", choices=["absolute", "median"], default="absolute",
+                   help="the radius normalisation the dataset's geom columns were "
+                        "preprocessed with: whole-tile infer recomputes the columns with it")
+    s.add_argument("--local_agg", choices=["none", "edge"], default="none",
+                   help="'edge': a kNN edge-feature block (DGCNN-style, residual) after "
+                        "mlp_a in the window encoder")
+    s.add_argument("--local_agg_k", type=int, default=16,
+                   help="neighbours per point for --local_agg edge (>= 1)")
+    s.add_argument("--att_geom_tokens", action="store_true",
+                   help="add an encoded per-window [mean ‖ max] of the geom columns to the "
+                        "attention tokens (needs --geom_features)")
+    s.add_argument("--distill_from", default="",
+                   help="teacher checkpoint(s), comma-separated like --model_checkpoint "
+                        "ensembles (cross-family groups work): the frozen teachers run "
+                        "inside the train step on the augmented batch")
+    s.add_argument("--distill_alpha", type=float, default=0.5,
+                   help="weight of the T^2*KL teacher term (with --distill_from): "
+                        "(1-a)*CE + a*KL")
+    s.add_argument("--distill_temp", type=float, default=2.0,
+                   help="distillation softmax temperature (> 0)")
     # the JAX command line's other options: refused unless at their defaults
     s.add_argument("--num_devices", type=int, default=1)
-    s.add_argument("--distill_from", default="")
-    s.add_argument("--local_agg", choices=["none", "edge"], default="none")
-    s.add_argument("--geom_features", action="store_true")
-    s.add_argument("--att_geom_tokens", action="store_true")
     s.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     s.add_argument("--oversample_factor", type=int, default=1)
     s.add_argument("--seg_weighing", default="")
@@ -912,7 +1007,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--epochs", type=int, default=3)
     s.add_argument("--backend", choices=list(BACKENDS), default="xla",
                    help="inference backend of the test stage")
-    s.add_argument("--geom_features", action="store_true", help="not ported yet (refused)")
+    s.add_argument("--geom_features", action="store_true",
+                   help="preprocess and train with the geometric eigenfeature columns")
     s.add_argument("--device", default="cuda",
                    help="where train and test run: cuda (default) or cpu")
     s.set_defaults(fn=cmd_demo)

@@ -38,7 +38,6 @@ from ampnet_tpu_torch.core.weights import (
     load_optax_adam_state,
     tensors_to_flax,
 )
-from ampnet_tpu_torch.data.schema import refuse_extra_features
 from ampnet_tpu_torch.models.factory import build_model
 
 SCHEMA_VERSION = 1
@@ -220,15 +219,16 @@ def is_checkpoint_dir(path: str) -> bool:
 def load_model(path: str, device="cuda"):
     """(cfg, model in eval mode on ``device``) from a checkpoint directory
     ``<dir>/<name>``: the config from ``meta.json`` (its ``model.context`` is
-    the arch, as the JAX command records it), the model from the factory for
-    that arch and the meta's task, the weights and BatchNorm statistics from
+    the arch, as the JAX command records it, and its ``extra_features``,
+    ``geom_k``, ``geom_radius_norm``, ``local_agg`` and ``att_geom_tokens``
+    the geometry), the model from the factory for that arch and the meta's
+    task at ``num_features + extra_features`` input columns, the weights and BatchNorm statistics from
     ``state.pt``. On the card unless ``device="cpu"``."""
     dev = resolve_device(device)
     meta = read_meta(path)
     if not meta.get("config"):
         raise ValueError(f"{path}: meta.json records no config, so the model cannot be built")
     cfg = AMPNetConfig.from_json(json.dumps(meta["config"]))
-    refuse_extra_features(cfg.data.extra_features)
     p = read_payload(path)
     model = build_model(cfg, cfg.model.context, meta.get("task", "segmentation"))
     load_flax_variables(model, {"params": _numpy_tree(p["params"]),

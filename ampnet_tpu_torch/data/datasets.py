@@ -41,15 +41,18 @@ class WindowedCloudDataset:
     """Pre-tiled clouds ``[N, 13, W]`` (the offline k-means artifacts
     ``kmeans_<name>.pt``, or ``.npz`` under the same name).
 
-    Drops noise-class point rows, remaps labels, selects the 9 model features,
-    rescales x/y to [-1, 1] and computes per-window x/y centroids. Samples are
-    window-major: points ``[W, N, 9]``, labels ``[W, N]``, centroids ``[W, 2]``.
+    Drops noise-class point rows, remaps labels, selects the 9 model features
+    (and ``extra_features`` geometric columns from 13 onward), rescales x/y to
+    [-1, 1] and computes per-window x/y centroids. Samples are window-major:
+    points ``[W, N, 9 + extra_features]``, labels ``[W, N]``, centroids ``[W, 2]``.
     """
 
     def __init__(self, dataset_folder: str, files: Sequence[str], task: str = "segmentation",
-                 noise_classes: Sequence[int] = S.DATASET_NOISE_CLASSES):
+                 noise_classes: Sequence[int] = S.DATASET_NOISE_CLASSES,
+                 extra_features: int = 0):
         self.task = task
         self.noise_classes = tuple(noise_classes)
+        self.extra_features = int(extra_features)
         stems = [os.path.join(dataset_folder, "kmeans_" + os.path.splitext(f)[0]) for f in files]
         self.paths = [s + ".pt" if os.path.exists(s + ".pt") else s + ".npz" for s in stems]
 
@@ -59,7 +62,17 @@ class WindowedCloudDataset:
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         pc = S.drop_noise_points(load_cloud(self.paths[index]), self.noise_classes)
         raw_cls = pc[:, S.COL.CLASS, :]  # [N, W]
-        feats = np.concatenate([pc[:, 0:3, :], pc[:, 4:10, :]], axis=1)  # [N, 9, W]
+        # [N, 9 + extra, W]: select_model_features on the windowed layout
+        parts = [pc[:, 0:3, :], pc[:, 4:10, :]]
+        if self.extra_features:
+            end = S.NUM_CANONICAL_COLS + self.extra_features
+            if pc.shape[1] < end:
+                raise ValueError(
+                    f"{self.paths[index]}: artifact has {pc.shape[1]} columns but "
+                    f"the model wants {self.extra_features} geometric feature "
+                    "columns — re-run `ampnet preprocess --geom_features`")
+            parts.append(pc[:, S.NUM_CANONICAL_COLS:end, :])
+        feats = np.concatenate(parts, axis=1)
         feats[:, 0, :] = feats[:, 0, :] * 2 - 1
         feats[:, 1, :] = feats[:, 1, :] * 2 - 1
         points = np.ascontiguousarray(feats.transpose(2, 0, 1))  # [W, N, 9]
@@ -89,10 +102,10 @@ class CloudDataset:
     def __init__(self, dataset_folder: str, files: Sequence[str], task: str = "segmentation",
                  number_of_points: int = 4096, feature_mode: str = "nine", seed: int = 0,
                  extra_features: int = 0):
-        S.refuse_extra_features(extra_features)
         self.files = list(files)
         self.paths = [os.path.join(dataset_folder, f) for f in self.files]
         self.task = task
+        self.extra_features = int(extra_features)
         self.n_points = number_of_points
         self.feature_mode = feature_mode
         self.rng = np.random.default_rng(seed)
@@ -111,7 +124,7 @@ class CloudDataset:
         pc = resample_points(pc, self.n_points, self.rng)
         raw_cls = pc[:, S.COL.CLASS]
         if self.feature_mode == "nine":
-            feats = S.select_model_features(pc)
+            feats = S.select_model_features(pc, self.extra_features)
             feats[:, 0] = feats[:, 0] * 2 - 1
             feats[:, 1] = feats[:, 1] * 2 - 1
         else:  # 'seven' (datasets.py:63)
@@ -129,22 +142,23 @@ class CloudDataset:
 
 
 class EvalCloudDataset:
-    """Variable-size clouds for evaluation: the 9 model features with x/y
-    rescaled to [-1, 1], remapped labels and the raw class column
-    (LidarDataset4Test, datasets.py:463-515). Noise classes are kept: the
-    reference's tester evaluates every point."""
+    """Variable-size clouds for evaluation: the 9 model features (and
+    ``extra_features`` geometric columns) with x/y rescaled to [-1, 1],
+    remapped labels and the raw class column (LidarDataset4Test,
+    datasets.py:463-515). Noise classes are kept: the reference's tester
+    evaluates every point."""
 
     def __init__(self, dataset_folder: str, files: Sequence[str], extra_features: int = 0):
-        S.refuse_extra_features(extra_features)
         self.files = list(files)
         self.paths = [os.path.join(dataset_folder, f) for f in self.files]
+        self.extra_features = int(extra_features)
 
     def __len__(self) -> int:
         return len(self.paths)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         pc = load_cloud(self.paths[index])
-        feats = S.select_model_features(pc)
+        feats = S.select_model_features(pc, self.extra_features)
         feats[:, 0] = feats[:, 0] * 2 - 1
         feats[:, 1] = feats[:, 1] * 2 - 1
         return {

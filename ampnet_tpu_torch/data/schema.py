@@ -70,21 +70,22 @@ def drop_noise_points(pc: np.ndarray, noise_classes=DATASET_NOISE_CLASSES) -> np
 
 def select_model_features(pc: np.ndarray, extra_features: int = 0) -> np.ndarray:
     """Drop the class and raw-coordinate columns → the 9 model features
-    [x,y,z,I,R,G,B,NIR,NDVI] of an [..., 13] array (datasets.py:359).
+    [x,y,z,I,R,G,B,NIR,NDVI] of an [..., 13+] array (datasets.py:359).
 
-    ``extra_features > 0`` (the offline geometric columns 13 onward) is
-    refused: those checkpoints are not ported yet."""
-    refuse_extra_features(extra_features)
-    return np.concatenate([pc[..., 0:3], pc[..., 4:10]], axis=-1)
-
-
-def refuse_extra_features(extra_features: int) -> None:
-    """Raise for a model that wants geometric feature columns beyond the
-    canonical 13: ROADMAP.md Queue 1, item 4b."""
+    ``extra_features > 0`` appends that many columns from 13 onward: the
+    offline geometric eigenfeatures (preproc/geomfeat.py). Raises when the
+    array was preprocessed without them."""
+    parts = [pc[..., 0:3], pc[..., 4:10]]
     if extra_features:
-        raise NotImplementedError(
-            f"{extra_features} geometric feature columns (13..{NUM_CANONICAL_COLS + extra_features - 1}) "
-            "are not ported yet: ROADMAP.md Queue 1, item 4b (geometry and distillation)")
+        end = NUM_CANONICAL_COLS + extra_features
+        if pc.shape[-1] < end:
+            raise ValueError(
+                f"artifact has {pc.shape[-1]} columns but the model wants "
+                f"{extra_features} geometric feature columns (13..{end - 1}) — "
+                "re-run `ampnet preprocess --geom_features` on this dataset"
+            )
+        parts.append(pc[..., NUM_CANONICAL_COLS:end])
+    return np.concatenate(parts, axis=-1)
 
 
 def normalize_xy_neg_one(pc: np.ndarray) -> np.ndarray:

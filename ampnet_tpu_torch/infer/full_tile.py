@@ -14,9 +14,10 @@ Points that the preprocessing filter drops (ground/noise classes, HAG outliers)
 keep their original classification in the output and are excluded from metrics —
 same population the reference evaluates on.
 
-Not ported yet: checkpoints with geometric feature columns (the JAX module
-recomputes them per window), ROADMAP.md Queue 1, item 4b (geometry and
-distillation); they are refused before any work.
+A checkpoint trained on geometric feature columns (``extra_features``) gets
+them recomputed per window at full window density from its metric
+coordinates, with the checkpoint's own ``geom_k`` and ``geom_radius_norm``,
+as ``preprocess --geom_features`` computed them for training.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ampnet_tpu_torch.data.las_io import LasCloud, read_las, write_las
-from ampnet_tpu_torch.data.schema import refuse_extra_features, remap_segmentation_labels
+from ampnet_tpu_torch.data.schema import remap_segmentation_labels
 from ampnet_tpu_torch.infer.tiled import evaluate_cloud, tta_ensemble
 from ampnet_tpu_torch.preproc.filter_norm import DROP_CLASSES, filter_and_normalize
 from ampnet_tpu_torch.preproc.hag import height_above_ground_grid
@@ -37,10 +38,19 @@ SEG_TO_LAS = np.array([1, 15, 14, 3, 5], np.int32)
 
 
 def tile_windows(las: LasCloud, window_size: float = 100.0, max_z: float = 100.0,
-                 min_points: int = 0, hag_cell: float = 2.0):
+                 min_points: int = 0, hag_cell: float = 2.0, extra_features: int = 0,
+                 geom_k: int = 24, geom_radius_norm: str = "absolute"):
     """The host stages of a tile: HAG (unless the LAS carries it), footprint
-    windows, filter and normalise → (model features [N_w, 9] float32 of each
-    window, the tile indices of its points, their raw classes)."""
+    windows, filter and normalise, and with ``extra_features`` the geometric
+    columns (``geometric_features`` of the window's metric x, y and HAG) →
+    (model features [N_w, 9 + extra_features] float32 of each window, the
+    tile indices of its points, their raw classes)."""
+    if extra_features:
+        from ampnet_tpu_torch.preproc.geomfeat import N_GEOM_FEATURES, geometric_features
+
+        if extra_features != N_GEOM_FEATURES:
+            raise ValueError(f"checkpoint wants {extra_features} geom columns, this build "
+                             f"computes {N_GEOM_FEATURES}")
     n = len(las)
     hag = las.height_above_ground
     if hag is None:
@@ -77,6 +87,10 @@ def tile_windows(las: LasCloud, window_size: float = 100.0, max_z: float = 100.0
         kept_idx = orig_idx[keep]
         assert len(kept_idx) == pc.shape[0]
         feats = np.concatenate([pc[:, 0:3], pc[:, 4:10]], axis=1)
+        if extra_features:
+            xyz = np.stack([pc[:, 10], pc[:, 11], pc[:, 2] * max_z], axis=1)
+            feats = np.concatenate([feats, geometric_features(
+                xyz, k=geom_k, radius_norm=geom_radius_norm)], axis=1)
         feats[:, 0] = feats[:, 0] * 2 - 1
         feats[:, 1] = feats[:, 1] * 2 - 1
         win_feats.append(feats.astype(np.float32))
@@ -100,12 +114,15 @@ def predict_tile(
     Every window goes into ONE ``predict_many`` with seeds ``range(windows)``:
     same-bucket windows batch into single device calls. ``tta``/``votes``
     average class probabilities over dihedral views / re-tilings per window
-    through ``tta_ensemble`` with its default seeds (the flags of ``test``)."""
-    refuse_extra_features(inferencer.cfg.data.extra_features)
+    through ``tta_ensemble`` with its default seeds (the flags of ``test``).
+    The geometric columns follow the inferencer's ``cfg.data``."""
     n = len(las)
     preds = np.full(n, -1, np.int32)
     labels = np.full(n, -1, np.int32)
-    win_feats, win_kept, win_cls = tile_windows(las, window_size, max_z, min_points, hag_cell)
+    data = inferencer.cfg.data
+    win_feats, win_kept, win_cls = tile_windows(
+        las, window_size, max_z, min_points, hag_cell, data.extra_features, data.geom_k,
+        data.geom_radius_norm)
     if win_feats:
         if int(tta) * int(votes) > 1:
             outs = [

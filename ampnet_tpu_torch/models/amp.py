@@ -20,14 +20,18 @@ middle width is 128. Classification (pointnetAtt.py:115-151, 261-279): the
 same encoder and context (attention without positional encoding), then a
 learned weighted sum over the windows (``mix_kernel [W, 1]``) and an FC head.
 
+Two opt-in blocks of the JAX package, with no reference counterpart:
+``local_agg='edge'`` adds a kNN edge-feature block after mlp_a
+(``EdgeLocalAggregation``, residual), and ``att_geom_tokens`` adds an encoded
+[mean ‖ max] summary of the geometric columns 9.. to each attention token
+(``GeomTokenEncoding``). Both run only as plain torch (the JAX package runs
+them only under ``xla``).
+
 Training: ``model.train()`` selects batch BatchNorm statistics and dropout
 (``attn_drop`` on the attention weights, ``drop_1``/``drop_2`` after the head's
 ReLUs), ``model.eval()`` running statistics and no dropout, as Flax's
 ``train`` flag does. Dropout masks come from the ``generator`` the caller
 passes to ``forward``; the global RNG is never used.
-
-Not ported yet, and refused at construction: ``local_agg='edge'`` and
-``att_geom_tokens`` (ROADMAP.md Queue 1, item 4b).
 """
 
 from __future__ import annotations
@@ -45,13 +49,81 @@ from ampnet_tpu_torch.models.layers import (
     MaskedBatchNorm,
     SharedMLP,
     TNet,
+    at_least_float32,
     default_generator,
     dropout,
     make_linear,
     masked_max_pool,
 )
 
-GEOMETRY_TODO = "ROADMAP.md Queue 1, item 4b (geometry and distillation)"
+# windows whose [W, N, N] distances one kNN pass holds (16 · 2048² fp32 = 256 MiB)
+KNN_WINDOWS_PER_PASS = 16
+
+
+def knn_indices(coords: torch.Tensor, mask: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    """[B, N, k] indices of each point's ``k`` nearest points of its window
+    (itself included), nearest first, as ``lax.top_k(-d2, k)`` picks them in
+    the JAX package: ``d2 = |a|² − 2a·b + |b|²`` in float32 (float64 for a
+    float64 input), padded points (``mask`` False) at +inf, and equal
+    distances to the LOWER index. ``torch.topk`` promises no order among
+    ties, so it only finds the k-th distance t; every point below t is taken,
+    then the lowest-indexed points at t fill the rest. Windows go through in
+    chunks of KNN_WINDOWS_PER_PASS, so the [N, N] distances never exist for
+    the whole batch at once. No gradient flows through the choice."""
+    B, N, _ = coords.shape
+    out = torch.empty(B, N, k, dtype=torch.long, device=coords.device)
+    pos = torch.arange(N, device=coords.device)
+    with torch.no_grad():
+        c = at_least_float32(coords)
+        for s in range(0, B, KNN_WINDOWS_PER_PASS):
+            cs = c[s:s + KNN_WINDOWS_PER_PASS]
+            sq = (cs * cs).sum(-1)
+            d2 = sq[:, :, None] - 2.0 * (cs @ cs.transpose(1, 2)) + sq[:, None, :]
+            if mask is not None:
+                d2 = d2.masked_fill(~mask[s:s + KNN_WINDOWS_PER_PASS, None, :], float("inf"))
+            t = torch.topk(d2, k, dim=-1, largest=False).values[..., -1:]  # the k-th distance
+            below = d2 < t
+            at = d2 == t
+            need = k - below.sum(-1, keepdim=True)
+            take = below | (at & (at.cumsum(-1) <= need))  # exactly k a row
+            # the taken indices in ascending order, then nearest first (a
+            # stable sort keeps equal distances in index order)
+            idx = torch.topk(torch.where(take, N - pos, 0), k, dim=-1).values.neg_().add_(N)
+            order = torch.sort(d2.gather(-1, idx), dim=-1, stable=True).indices
+            out[s:s + KNN_WINDOWS_PER_PASS] = idx.gather(-1, order)
+    return out
+
+
+class EdgeLocalAggregation(nn.Module):
+    """kNN edge-feature aggregation over each window's point graph
+    (``local_agg='edge'``, JAX ``models/amp.py:46-99``): per point its
+    ``local_agg_k`` nearest in-window neighbours (``knn_indices``), a shared
+    MLP (``edge_mlp``, C+C+D → C) over DGCNN-style edge features
+    ``[h_i ‖ h_j − h_i ‖ p_j − p_i]`` (Wang et al. 2019), max-pooled over the
+    neighbours and added to ``h``. With a point mask, padded neighbours stay
+    out of the BatchNorm statistics and the pool, and padded points add 0."""
+
+    def __init__(self, cfg: ModelConfig, channels: int, generator: torch.Generator):
+        super().__init__()
+        self.k = cfg.local_agg_k
+        self.edge_mlp = SharedMLP(2 * channels + cfg.point_dim, (channels,), generator,
+                                  norm_mode=cfg.bn_mode)
+
+    def forward(self, h: torch.Tensor, coords: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, N, C = h.shape
+        k = min(self.k, N)
+        idx = knn_indices(coords, mask, k)  # [B, N, k]
+        take = lambda a: a[torch.arange(B, device=a.device)[:, None, None], idx]
+        c32 = at_least_float32(coords)
+        rel_p = (take(c32) - c32[:, :, None, :]).to(h.dtype)
+        center = h[:, :, None, :].expand(B, N, k, C)
+        edges = torch.cat([center, take(h) - center, rel_p], dim=-1)
+        nbr_ok = take(mask) if mask is not None else None  # [B, N, k]
+        g = masked_max_pool(self.edge_mlp(edges, nbr_ok), nbr_ok)  # [B, N, C]
+        if mask is not None:
+            g = torch.where(mask[..., None], g, torch.zeros_like(g))
+        return h + g
 
 
 class WindowEncoder(nn.Module):
@@ -63,14 +135,15 @@ class WindowEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig, num_features: int = 9,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.local_agg != "none":
-            raise NotImplementedError(
-                f"local_agg={cfg.local_agg!r} is not ported yet: {GEOMETRY_TODO}")
+        if cfg.local_agg not in ("none", "edge"):
+            raise ValueError(f"unknown local_agg {cfg.local_agg!r}")
         g = default_generator(generator)
         self.cfg = cfg
         mode = cfg.bn_mode
         self.input_tnet = TNet(cfg.point_dim, cfg.point_dim, g, norm_mode=mode)
         self.mlp_a = SharedMLP(num_features + cfg.point_dim, (64, 64), g, norm_mode=mode)
+        if cfg.local_agg == "edge":
+            self.edge_agg = EdgeLocalAggregation(cfg, 64, g)
         self.feature_tnet = TNet(64, 64, g, norm_mode=mode)
         self.mlp_b = SharedMLP(64, (64, 128, 128, cfg.global_feat), g, norm_mode=mode)
 
@@ -95,6 +168,8 @@ class WindowEncoder(nn.Module):
         # (pointnetAtt.py:66,86)
         h = torch.cat([coords_t, x], dim=-1)
         h = self.mlp_a(h, mask)
+        if hasattr(self, "edge_agg"):
+            h = self.edge_agg(h, coords, mask)
         t_feat = self.feature_tnet(h, mask)
         local_feats = h @ t_feat  # [B*W, N, 64]
         global_feats = masked_max_pool(self.mlp_b(local_feats, mask), mask)
@@ -119,21 +194,43 @@ class CentroidPositionalEncoding(nn.Module):
         return self.fc2(F.leaky_relu(self.fc1(centroids), negative_slope=0.01))
 
 
+class GeomTokenEncoding(nn.Module):
+    """Window-level geometry summary → token embedding (``att_geom_tokens``,
+    JAX ``models/amp.py:191-211``): the per-window [mean ‖ max] of the
+    eigenfeature columns ``[B, W, 2E]`` through 2E→32→embed_dim with leaky
+    ReLU, the pos-enc's shape, added to the attention tokens."""
+
+    def __init__(self, in_dim: int, embed_dim: int, generator: torch.Generator):
+        super().__init__()
+        self.fc1 = make_linear(in_dim, 32, True, generator)
+        self.fc2 = make_linear(32, embed_dim, True, generator)
+
+    def forward(self, summary: torch.Tensor) -> torch.Tensor:  # [B, W, 2E]
+        return self.fc2(F.leaky_relu(self.fc1(summary), negative_slope=0.01))
+
+
 class AttentionContext(nn.Module):
     """Cross-window context via centroid pos-enc + masked MHA; without
     ``use_pos_enc`` (the classifier) there is no ``pos_enc`` at all, as in the
-    Flax tree."""
+    Flax tree. ``geom_dim`` > 0 adds ``geom_enc`` over a summary of that
+    width (the segmenter under ``att_geom_tokens``)."""
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator, use_pos_enc: bool = True):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, use_pos_enc: bool = True,
+                 geom_dim: int = 0):
         super().__init__()
         if use_pos_enc:
             self.pos_enc = CentroidPositionalEncoding(cfg.global_feat, generator)
+        if geom_dim:
+            self.geom_enc = GeomTokenEncoding(geom_dim, cfg.global_feat, generator)
         self.mha = WindowMHA(cfg.global_feat, cfg.att_heads, generator, drop_rate=cfg.dropout)
 
-    def forward(self, global_feats, centroids, window_pad_mask, generator=None):
+    def forward(self, global_feats, centroids, window_pad_mask, generator=None,
+                geom_summary=None):
         tokens = global_feats
         if centroids is not None and hasattr(self, "pos_enc"):
             tokens = tokens + self.pos_enc(centroids)
+        if geom_summary is not None:
+            tokens = tokens + self.geom_enc(geom_summary)
         return self.mha(tokens, key_padding_mask=window_pad_mask, generator=generator)
 
 
@@ -181,7 +278,8 @@ class GRUContext(nn.Module):
         super().__init__()
         self.gru = GRUCell(cfg.global_feat, cfg.gru_hidden, generator)
 
-    def forward(self, global_feats, centroids=None, window_pad_mask=None, generator=None):
+    def forward(self, global_feats, centroids=None, window_pad_mask=None, generator=None,
+                geom_summary=None):
         return self.gru(global_feats), None
 
 
@@ -221,33 +319,54 @@ class AMPNetSegmenter(nn.Module):
     Returns ``(logits [B, W, N, num_classes], feature_transforms, attn_weights)``.
     Weights are initialized as Flax initializes them (lecun-normal kernels,
     zero biases, identity BN, zero ``fc_out``), from ``generator``; every
-    BatchNorm takes ``cfg.bn_momentum``."""
+    BatchNorm takes ``cfg.bn_momentum``. Under ``att_geom_tokens`` the
+    attention context reads the masked [mean ‖ max] of the input columns 9..
+    of each window (ignored by the GRU context, as in JAX)."""
 
     def __init__(self, cfg: ModelConfig, num_features: int = 9,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
         self.cfg = cfg
+        self.geom_tokens = cfg.att_geom_tokens and cfg.context == "attention"
+        if self.geom_tokens and num_features <= 9:
+            raise ValueError(
+                "att_geom_tokens needs the offline eigenfeature columns (train "
+                "--geom_features over a dataset preprocessed with --geom_features); "
+                f"input has {num_features} features")
         self.encoder = WindowEncoder(cfg, num_features, g)
-        self.context, ctx_dim = _make_context(cfg, g, use_pos_enc=True)
+        self.context, ctx_dim = _make_context(
+            cfg, g, use_pos_enc=True, geom_dim=2 * (num_features - 9) if self.geom_tokens else 0)
         self.head = SegmentationHead(cfg, ctx_dim, g)
         _set_bn_momentum(self, cfg.bn_momentum)
 
     def forward(self, points, centroids=None, window_pad_mask=None, point_mask=None,
                 generator: Optional[torch.Generator] = None):
         local_feats, global_feats, t_feat = self.encoder(points, point_mask)
+        summary = geom_summary(points, point_mask) if self.geom_tokens else None
         ctx, attn_weights = _run_context(self.context, global_feats, centroids,
-                                         window_pad_mask, generator)
+                                         window_pad_mask, generator, summary)
         logits = self.head(local_feats, ctx, point_mask, generator=generator)
         return logits, t_feat, attn_weights
 
 
-def _make_context(cfg: ModelConfig, g: torch.Generator, use_pos_enc: bool):
+def geom_summary(points: torch.Tensor, point_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, W, 2E]: each window's mean (over real points) ‖ max (0 for a fully
+    padded window) of the eigenfeature columns 9.. of ``points [B, W, N, F]``,
+    in float32 (float64 for a float64 model)."""
+    g = at_least_float32(points[..., 9:])
+    if point_mask is not None:
+        m = point_mask[..., None].to(g.dtype)
+        mean = (g * m).sum(-2) / m.sum(-2).clamp_min(1.0)
+    else:
+        mean = g.mean(-2)
+    return torch.cat([mean, masked_max_pool(g, point_mask)], dim=-1)
+
+
+def _make_context(cfg: ModelConfig, g: torch.Generator, use_pos_enc: bool, geom_dim: int = 0):
     """(context module or None, context width) for ``cfg.context``."""
-    if cfg.att_geom_tokens:
-        raise NotImplementedError(f"att_geom_tokens is not ported yet: {GEOMETRY_TODO}")
     if cfg.context == "attention":
-        return AttentionContext(cfg, g, use_pos_enc), cfg.global_feat
+        return AttentionContext(cfg, g, use_pos_enc, geom_dim), cfg.global_feat
     if cfg.context == "gru":
         return GRUContext(cfg, g), cfg.gru_hidden
     if cfg.context == "none":
@@ -255,12 +374,14 @@ def _make_context(cfg: ModelConfig, g: torch.Generator, use_pos_enc: bool):
     raise ValueError(f"unknown context {cfg.context!r}")
 
 
-def _run_context(context, global_feats, centroids, window_pad_mask, generator):
+def _run_context(context, global_feats, centroids, window_pad_mask, generator,
+                 summary=None):
     """(per-window context, attention weights or None); no context module
     passes the global features on."""
     if context is None:
         return global_feats, None
-    return context(global_feats, centroids, window_pad_mask, generator=generator)
+    return context(global_feats, centroids, window_pad_mask, generator=generator,
+                   geom_summary=summary)
 
 
 def _set_bn_momentum(model: nn.Module, momentum: float) -> None:

@@ -23,13 +23,15 @@ def build_model(cfg: AMPNetConfig, arch: str = "attention", task: str = "segment
                 num_cls_out: int = 2, generator: Optional[torch.Generator] = None):
     """arch: 'attention' (AMP-Net), 'gru' (sequential windows), 'baseline'
     (light single-window PointNet), 'classic' (original 1024-d PointNet),
-    'pointnet2' (segmentation only). Windowed classifiers size their window
-    mix to ``cfg.data.max_windows``. Weights are drawn from ``generator``."""
+    'pointnet2' (segmentation only). Every model reads ``num_features +
+    extra_features`` input columns (the geometric columns follow the 9 model
+    features). Windowed classifiers size their window mix to
+    ``cfg.data.max_windows``. Weights are drawn from ``generator``."""
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; expected one of {ARCHS}")
     if task not in TASKS:
         raise ValueError(f"unknown task {task!r}; expected one of {TASKS}")
-    mcfg, nf = cfg.model, cfg.data.num_features
+    mcfg, nf = cfg.model, cfg.data.num_features + cfg.data.extra_features
     if arch in WINDOWED:
         mcfg = dataclasses.replace(mcfg, context=arch)
         if task == "segmentation":

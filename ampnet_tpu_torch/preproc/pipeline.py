@@ -24,8 +24,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-GEOM_FEATURES = "ROADMAP.md Queue 1, item 4b (geometry and distillation)"
-
 
 @dataclass(frozen=True)
 class PreprocessParams:
@@ -40,13 +38,17 @@ class PreprocessParams:
     artifact_format: str = "npz"
     assigner: str = "exact_mcf"  # 'exact_mcf' (host solver) | 'sinkhorn' (on device)
     device: str = "cuda"  # where 'sinkhorn' runs
-    # per-point covariance eigenfeatures (columns 13..18): not ported yet
+    # per-point covariance eigenfeatures (preproc/geomfeat.py) appended as
+    # columns 13..18, computed at full density before the tiler subsamples
     geom_features: bool = False
+    geom_k: int = 24
+    geom_radius_norm: str = "absolute"  # 'absolute' | 'median' (geomfeat.py)
 
     def __post_init__(self):
-        if self.geom_features:
-            raise NotImplementedError("geometric feature columns (preproc/geomfeat.py) are not "
-                                      f"ported yet: {GEOM_FEATURES}")
+        # a neighbourhood needs a point: values below 1 are refused, not
+        # coerced to the default as the JAX command line does
+        if self.geom_k < 1:
+            raise ValueError(f"geom_k must be >= 1, got {self.geom_k}")
 
 
 def process_tile(tile_path: str, params: PreprocessParams) -> Tuple[List[str], Optional[str]]:
@@ -96,6 +98,14 @@ def process_tile(tile_path: str, params: PreprocessParams) -> Tuple[List[str], O
         )
         if pc is None:
             continue
+        if params.geom_features:
+            from ampnet_tpu_torch.preproc.geomfeat import geometric_features
+
+            # metric coordinates: raw x/y (cols 10, 11) and HAG in metres
+            # (col 2 is HAG / max_z), so neighbourhoods are isotropic
+            xyz = np.stack([pc[:, 10], pc[:, 11], pc[:, 2] * params.max_z], axis=1)
+            pc = np.concatenate([pc, geometric_features(
+                xyz, k=params.geom_k, radius_norm=params.geom_radius_norm)], axis=1)
         name = window_file_name(prefix, params.dataset, tile_name, w["window_id"])
         save_cloud(os.path.join(params.out_path, name + ".pkl"), pc)
         windowed = kmeans_tile_cloud(

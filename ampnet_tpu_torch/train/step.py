@@ -21,6 +21,15 @@ sum (known from the labels before any forward), so the summed gradient is the
 full-batch CE gradient exactly; the regulariser is scaled by 1/K (a mean of
 per-micro norms); the BatchNorm running statistics chain from one micro-batch
 to the next.
+
+Distillation (``teacher=``, train/distill.py): the frozen teachers run on the
+augmented batch before the student's forward, and the data term becomes
+``(1 − α)·CE + α·T²·KL(teacher ‖ student)`` (``distill_alpha``,
+``distill_temp``); under ``grad_accum`` each micro-batch's KL numerator is
+divided by the batch's global count of valid points, so that gradient is
+exact too. A batch may carry more columns than the student reads (a
+geometric teacher's): the student reads its own prefix,
+``num_features + extra_features``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from ampnet_tpu_torch.ops.augment import (
 )
 from ampnet_tpu_torch.train.losses import (
     cross_entropy_weight_sum,
+    distillation_kl,
+    distillation_kl_parts,
     orthogonality_regularizer,
     weighted_cross_entropy,
     weighted_cross_entropy_parts,
@@ -49,7 +60,6 @@ from ampnet_tpu_torch.train.losses import (
 )
 from ampnet_tpu_torch.train.state import TrainState
 
-DISTILL_TODO = "ROADMAP.md Queue 1, item 4b (geometry and distillation)"
 AUGMENTATIONS = ("shuffle_windows", "rotate_z", "jitter", "scale", "shift", "point_dropout")
 
 Batch = Dict[str, torch.Tensor]
@@ -87,11 +97,19 @@ def augment_batch(batch: Batch, recipe, generator: torch.Generator) -> Batch:
     return out
 
 
-def _forward(model, batch: Batch, generator: Optional[torch.Generator]):
+def _pad_mask(batch: Batch) -> torch.Tensor:
     pad_mask = batch.get("window_pad_mask")
-    if pad_mask is None:
-        pad_mask = window_pad_mask_from_labels(batch["labels"])
-    return model(batch["points"], batch.get("centroids"), pad_mask, batch.get("point_mask"),
+    return window_pad_mask_from_labels(batch["labels"]) if pad_mask is None else pad_mask
+
+
+def _forward(model, batch: Batch, generator: Optional[torch.Generator],
+             width: Optional[int] = None):
+    """The model on ``batch``; a batch wider than ``width`` (a geometric
+    teacher's columns) gives the model its first ``width`` columns."""
+    points = batch["points"]
+    if width is not None and points.shape[-1] > width:
+        points = points[..., :width]
+    return model(points, batch.get("centroids"), _pad_mask(batch), batch.get("point_mask"),
                  generator=generator)
 
 
@@ -106,9 +124,9 @@ def make_step_fns(
     ``train_step(state, batch) -> metrics`` updates ``state`` in place (model
     parameters, BatchNorm running statistics, Adam, ``step``);
     ``eval_step(state, batch) -> (metrics, preds)`` runs the model in eval mode
-    and leaves it in the mode it found it in."""
-    if teacher is not None:
-        raise NotImplementedError(f"distillation is not ported yet: {DISTILL_TODO}")
+    and leaves it in the mode it found it in. ``teacher``: ``[(cfg, model or
+    [model, ...]), ...]`` distills those teachers into the step (metric
+    ``distill_loss``)."""
     t = cfg.train
     reg_w = t.reg_weight
     num_classes = cfg.model.num_classes
@@ -123,6 +141,17 @@ def make_step_fns(
     unknown = [a for a in recipe if a not in AUGMENTATIONS]
     if unknown:
         raise ValueError(f"unknown augmentation {unknown[0]!r}")
+    alpha, temp = float(t.distill_alpha), float(t.distill_temp)
+    if teacher is not None and not 0.0 < alpha <= 1.0:
+        raise ValueError(f"distillation needs 0 < distill_alpha <= 1, got {alpha}")
+    if temp <= 0:
+        raise ValueError(f"distill_temp must be > 0, got {temp}")
+    teacher_fn = None
+    if teacher is not None:
+        from ampnet_tpu_torch.train.distill import make_teacher_fn
+
+        teacher_fn = make_teacher_fn(teacher, temperature=temp)
+    width = int(cfg.data.num_features + cfg.data.extra_features)
 
     weights_by_device: Dict[torch.device, torch.Tensor] = {}
 
@@ -147,12 +176,20 @@ def make_step_fns(
         cw = weights_on(state.device)
         gen = state.step_generator()
         aug = augment_batch(batch, recipe, gen)
+        if teacher_fn is not None:  # on the batch the student sees, before its forward
+            aug["teacher_probs"] = teacher_fn(aug["points"], aug.get("centroids"),
+                                              _pad_mask(aug), aug.get("point_mask"))
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum == 1:
-            logits, t_feat, _ = _forward(model, aug, gen)
+            logits, t_feat, _ = _forward(model, aug, gen, width)
             ce = data_loss(logits, aug["labels"], cw)
+            data = ce
+            if teacher_fn is not None:
+                dl = distillation_kl(logits, aug["teacher_probs"], aug["labels"], temp, ignore)
+                data = (1.0 - alpha) * ce + alpha * dl
+                dl = dl.detach()
             reg = orthogonality_regularizer(t_feat)
-            loss = ce + reg_w * reg
+            loss = data + reg_w * reg
             loss.backward()
             logits = logits.detach()
             cm = confusion_matrix(logits.argmax(-1), aug["labels"], num_classes)
@@ -168,15 +205,23 @@ def make_step_fns(
             mb = b // grad_accum
             # the global CE normaliser: label-only, known before any forward
             w_total = cross_entropy_weight_sum(aug["labels"], cw, ignore).clamp_min(1e-12)
-            loss = ce = true_ce = reg = torch.zeros((), device=state.device)
+            # the global KL normaliser, label-only as well: the valid points
+            n_total = (aug["labels"] != ignore).float().sum().clamp_min(1.0)
+            loss = ce = true_ce = reg = dl = torch.zeros((), device=state.device)
             cm = torch.zeros((num_classes, num_classes), dtype=torch.long, device=state.device)
             for k in range(grad_accum):
                 micro = {key: v[k * mb:(k + 1) * mb] for key, v in aug.items()
                          if isinstance(v, torch.Tensor)}
-                logits, t_feat, _ = _forward(model, micro, gen)
+                logits, t_feat, _ = _forward(model, micro, gen, width)
                 ce_k = data_loss_parts(logits, micro["labels"], cw)[0] / w_total
+                data_k = ce_k
+                if teacher_fn is not None:
+                    dl_k = distillation_kl_parts(logits, micro["teacher_probs"],
+                                                 micro["labels"], temp, ignore)[0] / n_total
+                    data_k = (1.0 - alpha) * ce_k + alpha * dl_k
+                    dl = dl + dl_k.detach()
                 reg_k = orthogonality_regularizer(t_feat)
-                loss_k = ce_k + reg_w * reg_k / grad_accum
+                loss_k = data_k + reg_w * reg_k / grad_accum
                 loss_k.backward()
                 logits = logits.detach()
                 tce_k = (weighted_cross_entropy_parts(logits, micro["labels"], cw, ignore)[0]
@@ -193,6 +238,8 @@ def make_step_fns(
                    "grad_norm": grad_norm}
         if focal_gamma > 0:
             metrics["focal_loss"] = ce
+        if teacher_fn is not None:
+            metrics["distill_loss"] = dl
         return metrics
 
     def eval_step(state: TrainState, batch: Batch):
@@ -202,7 +249,7 @@ def make_step_fns(
         model.eval()
         try:
             with torch.no_grad():
-                logits, _, _ = _forward(model, batch, None)
+                logits, _, _ = _forward(model, batch, None, width)
         finally:
             model.train(was_training)
         ce = data_loss(logits, batch["labels"], cw)

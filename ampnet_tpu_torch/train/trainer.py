@@ -17,6 +17,8 @@
 * Any model of the factory trains here; the classification task passes its
   own steps (``train/cls_step.py``) as ``step_fns``, and its epoch metrics
   carry the ``no_tower``/``tower`` tags.
+* ``teacher`` distills frozen teachers into the segmentation step
+  (``train/distill.py``); its ``distill_loss`` joins the epoch metrics.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from ampnet_tpu_torch.train.step import make_step_fns
 
 IOU_TAGS = ("bckg", "tower", "cables", "low_veg", "high_veg")
 CLS_TAGS = ("no_tower", "tower")
-LOSS_KEYS = ("loss", "ce_loss", "focal_loss", "reg_loss")
+LOSS_KEYS = ("loss", "ce_loss", "focal_loss", "reg_loss", "distill_loss")
 
 
 def parameter_counts(model: torch.nn.Module) -> Dict[str, int]:
@@ -90,6 +92,7 @@ class Trainer:
         augment: bool = True,
         device="cuda",
         step_fns: Optional[Tuple[Callable, Callable]] = None,
+        teacher=None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -100,8 +103,10 @@ class Trainer:
         self.task = task
         self.steps_per_epoch = max(len(train_data), 1)
         self.state = create_train_state(cfg, model, self.steps_per_epoch, self.device)
-        # the segmentation steps unless the caller brings its own (classification)
-        self.train_step, self.eval_step = step_fns or make_step_fns(cfg, augment=augment)
+        # the segmentation steps (distilling ``teacher``, train/distill.py)
+        # unless the caller brings its own (classification)
+        self.train_step, self.eval_step = step_fns or make_step_fns(cfg, augment=augment,
+                                                                    teacher=teacher)
         self.train_epoch, self.eval_epoch = make_epoch_fns(self.train_step, self.eval_step)
         counts = parameter_counts(model)
         print("Trainable params: " + ", ".join(f"{k}={v:,}" for k, v in counts.items()))

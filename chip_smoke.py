@@ -110,7 +110,27 @@ the run (non-zero exit, no result line) when it does not hold:
    message. Neither kernel launches in any of these runs (the JAX package
    runs the families only under ``xla``). The ``families:`` line prints each
    run's numbers beside the card;
-10. results -- one ``{"kernels": [...]}`` line, then as the last line
+10. geometry -- the eigenfeature columns, the edge block, the geometry tokens
+   and distillation at full published width (``geometry_phase``): (a)
+   ``preprocess --geom_features`` of phase 8's tiles (``--geom_k 24``, then
+   ``--geom_radius_norm median``; columns 13..18 in [0, 1], the first 13 equal
+   to phase 8's artifacts bit for bit); (b) both kernels against their plain
+   versions at ``serve_geom:mlp_a`` ([18, 4096], 18 → 64 → 64: the scalar
+   x-load path), timed as in phase 3; (c) a 15-column learnable dataset,
+   the geometry model's card step against the CPU's, ``train
+   --geom_features`` 2 epochs and its warm step; (d) that checkpoint served
+   under ``fused`` and ``int8`` with 15-column bodies (answers =
+   ``predict_many``, labels against ``xla`` >= 0.999 / > 0.97, launches 4
+   and 2 + 2 a bucket forward), ``test`` of (a)'s clouds and whole-tile
+   ``infer`` of phase 8's tiles under both, with the geometry recomputed;
+   (e) ``train --geom_features --local_agg edge --att_geom_tokens`` at 32 x
+   9 x 2048, its card step against the CPU's, warm step, kNN ms, ``test``
+   under ``xla`` and ``--backend fused`` exiting 1 with the JAX message;
+   (f) ``train --distill_from`` (c) and (e) into a plain 9-column student,
+   ``--grad_accum`` 1 and 2, and its card step against the CPU's; (g)
+   ``demo --geom_features --backend fused``. (e) and (f) launch neither
+   kernel. The ``geometry:`` line prints every number beside the card;
+11. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -329,20 +349,64 @@ def edge_phase(dev):
 TF32_BOUND_PEAK = "3 TF32 products per fp32 product at 495 TFLOP/s (dense TF32)"
 
 
-def kernel_phase(model, dev):
-    """Phase 3: fused_mlp_chain against its plain version → (the per-forward
-    row, the four serving chains summed; one row per case). The kernel is
-    held against the plain version from plain weights (the wrapper prepares
-    them) and timed on a chain prepared once, as the forward runs it, on
-    both clocks (``kernel_timing.py``)."""
+def fused_case_row(case, ws, bs, x, pool, acts, relu_last) -> dict:
+    """One fused_mlp_chain case on ``x`` [M, N, Cin]: the kernel against its
+    plain version from plain weights (the wrapper prepares them) and on a
+    chain prepared once, as the forward runs it; timed on both clocks
+    (``kernel_timing.py``) beside its bounds and the plain chain, which is
+    the cuBLAS fp32 layer chain; printed."""
     from kernel_timing import device_ms, host_ms
 
-    from ampnet_tpu_torch.models.folded_infer import folded_chain_params
     from ampnet_tpu_torch.ops.fused_mlp import (
         fused_mlp_chain,
         fused_mlp_chain_reference,
         prepare_chain,
     )
+
+    m, n = x.shape[:2]
+    dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+    kw = dict(pool=pool, return_acts=acts, relu_last=relu_last)
+    err = kernel_err(case, x, ws, bs, kw)
+    prepared = prepare_chain(ws, bs)
+    err = max(err, compare(case, fused_mlp_chain(x, prepared, **kw),
+                           fused_mlp_chain_reference(x, ws, bs, **kw))[0])
+    iters = 20 if m * n >= 1 << 16 else 100
+    kern = lambda: fused_mlp_chain(x, prepared, **kw)
+    plain = lambda: fused_mlp_chain_reference(x, ws, bs, **kw)
+    # in turns, plain kernel kernel plain, within one card and one call
+    p1, k1, k2, p2 = (host_ms(f, iters) for f in (plain, kern, kern, plain))
+    dp1, dk1, dk2, dp2 = (device_ms(f, iters) for f in (plain, kern, kern, plain))
+    bound_ms, bound_by, tf32_bound_ms, fp32_bound_ms, flops, nbytes = chain_bound(
+        m, n, dims, pool, acts)
+    row = {
+        "name": f"fused_mlp_chain:{case}", "case": case, "shape": [m, n, dims],
+        "route": "cuda", "source": "ampnet_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "ampnet_tpu/ops/pallas/fused_mlp.py:69",
+        "max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+        # the plain version IS the cuBLAS fp32 layer chain (TF32 off)
+        "library_ms": (p1 + p2) / 2,
+        "device_ms": (dk1 + dk2) / 2, "plain_device_ms": (dp1 + dp2) / 2,
+        "library_device_ms": (dp1 + dp2) / 2,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_peak": TF32_BOUND_PEAK if bound_by == "operations" else "3.35 TB/s (HBM3)",
+        "tf32_bound_ms": tf32_bound_ms, "fp32_bound_ms": fp32_bound_ms,
+        "flops": flops, "bytes": nbytes,
+    }
+    _say(f"  {case:24s} M={m:4d} N={n:5d} dims={dims} err={err:.3g} "
+         f"kernel={row['ms']:.4f} ms (device {row['device_ms']:.4f}) "
+         f"plain={row['plain_ms']:.4f} ms (device {row['plain_device_ms']:.4f}) "
+         f"bound={bound_ms:.4f} ms ({bound_by}) 1xTF32 bound={tf32_bound_ms:.4f} ms "
+         f"fp32 bound={fp32_bound_ms:.4f} ms")
+    return row
+
+
+def kernel_phase(model, dev):
+    """Phase 3: fused_mlp_chain against its plain version → (the per-forward
+    row, the four serving chains summed; one row per case). The kernel is
+    held against the plain version from plain weights (the wrapper prepares
+    them) and timed on a chain prepared once, as the forward runs it, on
+    both clocks (``fused_case_row``)."""
+    from ampnet_tpu_torch.models.folded_infer import folded_chain_params
 
     enc = model.encoder
     chains = {
@@ -362,41 +426,8 @@ def kernel_phase(model, dev):
         (ws, bs), _, _ = chains[chain]
         ws = [w.detach().to(dev).contiguous() for w in ws]
         bs = [b.detach().to(dev).contiguous() for b in bs]
-        dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
-        x = torch.randn(m, n, dims[0], generator=gen, device=dev)
-        kw = dict(pool=pool, return_acts=acts, relu_last=relu_last)
-        err = kernel_err(case, x, ws, bs, kw)
-        prepared = prepare_chain(ws, bs)
-        err = max(err, compare(case, fused_mlp_chain(x, prepared, **kw),
-                               fused_mlp_chain_reference(x, ws, bs, **kw))[0])
-        iters = 20 if m * n >= 1 << 16 else 100
-        kern = lambda: fused_mlp_chain(x, prepared, **kw)
-        plain = lambda: fused_mlp_chain_reference(x, ws, bs, **kw)
-        # in turns, plain kernel kernel plain, within one card and one call
-        p1, k1, k2, p2 = (host_ms(f, iters) for f in (plain, kern, kern, plain))
-        dp1, dk1, dk2, dp2 = (device_ms(f, iters) for f in (plain, kern, kern, plain))
-        bound_ms, bound_by, tf32_bound_ms, fp32_bound_ms, flops, nbytes = chain_bound(
-            m, n, dims, pool, acts)
-        row = {
-            "name": f"fused_mlp_chain:{case}", "case": case, "shape": [m, n, dims],
-            "route": "cuda", "source": "ampnet_tpu_torch/csrc/fused_mlp.cu",
-            "replaces": "ampnet_tpu/ops/pallas/fused_mlp.py:69",
-            "max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            # the plain version IS the cuBLAS fp32 layer chain (TF32 off)
-            "library_ms": (p1 + p2) / 2,
-            "device_ms": (dk1 + dk2) / 2, "plain_device_ms": (dp1 + dp2) / 2,
-            "library_device_ms": (dp1 + dp2) / 2,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_peak": TF32_BOUND_PEAK if bound_by == "operations" else "3.35 TB/s (HBM3)",
-            "tf32_bound_ms": tf32_bound_ms, "fp32_bound_ms": fp32_bound_ms,
-            "flops": flops, "bytes": nbytes,
-        }
-        _say(f"  {case:24s} M={m:4d} N={n:5d} dims={dims} err={err:.3g} "
-             f"kernel={row['ms']:.4f} ms (device {row['device_ms']:.4f}) "
-             f"plain={row['plain_ms']:.4f} ms (device {row['plain_device_ms']:.4f}) "
-             f"bound={bound_ms:.4f} ms ({bound_by}) 1xTF32 bound={tf32_bound_ms:.4f} ms "
-             f"fp32 bound={fp32_bound_ms:.4f} ms")
-        rows.append(row)
+        x = torch.randn(m, n, ws[0].shape[0], generator=gen, device=dev)
+        rows.append(fused_case_row(case, ws, bs, x, pool, acts, relu_last))
         del x
     serve = [r for r in rows if r["case"].startswith("serve:")]
     bound_ms, bound_by, tf32_bound_ms, fp32_bound_ms = roofline(
@@ -480,19 +511,79 @@ def int_mm_chain(x, wq_cols, w_scale, biases, g, pool, relu_last, return_acts):
     return h.amax(dim=1) if pool else h
 
 
-def quantized_phase(model, dev):
-    """Phase 3c: quantized_mlp_chain against its plain version, with the
-    seeded model's folded and quantized mlp_a and mlp_b → (the per-forward
-    row, the two serving chains summed; one row per case). The kernel runs
-    on the chains prepared once, as the forward runs them."""
+def int8_case_row(case, args, x, pool, acts, relu_last, bw):
+    """One quantized_mlp_chain case on ``x`` [M, N, Cin] with the weight
+    arguments ``args`` (a prepared chain, as the forward holds it, or the
+    plain weights on the CPU): the kernel against its plain version, every
+    element, and the ``_int_mm`` chain; timed on both clocks beside its bound
+    and the bound of its own plan; printed → (row, (plan ops, plan bytes))."""
     from kernel_timing import device_ms, host_ms
 
-    from ampnet_tpu_torch.models.quantized_infer import quantize_encoder_chains
     from ampnet_tpu_torch.ops.quantized_mlp import (
         block_windows_for,
         quantized_mlp_chain,
         quantized_mlp_chain_reference,
     )
+
+    wq, s_w, bs = (args[0].wq, args[0].w_scale, args[0].biases) if len(args) == 1 else args
+    m, n = x.shape[:2]
+    dims = [wq[0].shape[0]] + [q.shape[1] for q in wq]
+    g = block_windows_for(m, n, max(dims[1:]), bw)
+    # column-major [K, Cout] weights, K padded to a multiple of 8
+    wq_cols = [torch.nn.functional.pad(q, (0, 0, 0, -q.shape[0] % 8)).t().contiguous().t()
+               for q in wq]
+    kw = dict(pool=pool, return_acts=acts, relu_last=relu_last, block_windows=bw)
+    kern = lambda: quantized_mlp_chain(x, *args, **kw)
+    plain = lambda: quantized_mlp_chain_reference(x, wq, s_w, bs, **kw)
+    library = lambda: int_mm_chain(x, wq_cols, s_w, bs, g, pool, relu_last, acts)
+    err, ndiff = compare(case, kern(), plain())
+    if ndiff:
+        raise RuntimeError(f"int8 {case}: {ndiff} elements differ from the plain version")
+    lib_err, lib_diff = compare(case, library(), plain(), what="the _int_mm chain")
+    bound_ms, bound_by, ops, nbytes = int8_bound(m, n, dims, pool, acts)
+    design_ms, design_by, design_ops, design_bytes = int8_design_bound(
+        m, n, dims, pool, acts, g)
+    row = {
+        "name": f"quantized_mlp_chain:{case}", "case": case, "shape": [m, n, dims],
+        "block_windows": g, "padded_windows": -m % g,
+        "route": "cuda", "source": "ampnet_tpu_torch/csrc/quantized_mlp.cu",
+        "replaces": "ampnet_tpu/ops/pallas/quantized_mlp.py:46",
+        "max_abs_err": err, "elements_differ": ndiff,
+        "library_max_abs_err": lib_err, "library_elements_differ": lib_diff,
+        "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops, "bytes": nbytes,
+    }
+    iters = 20 if m * n >= 1 << 16 else 100
+    # in turns, plain kernel kernel plain, within one card and one call
+    p1, k1, k2, p2 = (host_ms(f, iters) for f in (plain, kern, kern, plain))
+    l1, l2 = host_ms(library, iters), host_ms(library, iters)
+    dp1, dk1, dk2, dp2 = (device_ms(f, iters) for f in (plain, kern, kern, plain))
+    dl1, dl2 = device_ms(library, iters), device_ms(library, iters)
+    row.update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+                "device_ms": (dk1 + dk2) / 2, "plain_device_ms": (dp1 + dp2) / 2,
+                "library_device_ms": (dl1 + dl2) / 2,
+                "cuda_launches_per_call": {
+                    name: sum(cuda_launches(fn).values())
+                    for name, fn in (("kernel", kern), ("plain", plain), ("library", library))}})
+    if case.startswith("serve:"):
+        _say(f"  int8 {case}: the kernel's device operations per call: "
+             + json.dumps(cuda_launches(kern)))
+    _say(f"  int8 {case:22s} M={m:4d} N={n:5d} dims={dims} g={g} err={err:.3g} "
+         f"differ={ndiff} library_err={lib_err:.3g} kernel={row['ms']:.4f} ms "
+         f"(device {row['device_ms']:.4f}) plain={row['plain_ms']:.4f} ms "
+         f"(device {row['plain_device_ms']:.4f}) library={row['library_ms']:.4f} ms "
+         f"(device {row['library_device_ms']:.4f}) "
+         f"bound={bound_ms:.4f} ms ({bound_by}) share={bound_ms / row['device_ms']:.3f} "
+         f"design bound={design_ms:.4f} ms ({design_by}) launches/call="
+         + json.dumps(row["cuda_launches_per_call"]))
+    return row, (design_ops, design_bytes)
+
+
+def quantized_phase(model, dev):
+    """Phase 3c: quantized_mlp_chain against its plain version, with the
+    seeded model's folded and quantized mlp_a and mlp_b → (the per-forward
+    row, the two serving chains summed; one row per case). The kernel runs
+    on the chains prepared once, as the forward runs them (``int8_case_row``)."""
+    from ampnet_tpu_torch.models.quantized_infer import quantize_encoder_chains
 
     (mlp_a,), (mlp_b,) = quantize_encoder_chains(model)  # prepared, as make_forward holds them
     chains = {"mlp_a": (mlp_a, False, True), "mlp_b": (mlp_b, True, False)}
@@ -507,58 +598,10 @@ def quantized_phase(model, dev):
     rows, served_design = [], []  # served_design: (ops, bytes) of the plan, printed only
     for case, chain, m, n, pool, acts, relu_last, bw in cases:
         prepared, _, _ = chains[chain]
-        wq, s_w, bs = prepared.wq, prepared.w_scale, prepared.biases
-        dims = [wq[0].shape[0]] + [q.shape[1] for q in wq]
-        g = block_windows_for(m, n, max(dims[1:]), bw)
-        # column-major [K, Cout] weights, K padded to a multiple of 8
-        wq_cols = [torch.nn.functional.pad(q, (0, 0, 0, -q.shape[0] % 8)).t().contiguous().t()
-                   for q in wq]
-        x = torch.randn(m, n, dims[0], generator=gen, device=dev)
-        kw = dict(pool=pool, return_acts=acts, relu_last=relu_last, block_windows=bw)
-        kern = lambda: quantized_mlp_chain(x, prepared, **kw)
-        plain = lambda: quantized_mlp_chain_reference(x, wq, s_w, bs, **kw)
-        library = lambda: int_mm_chain(x, wq_cols, s_w, bs, g, pool, relu_last, acts)
-        err, ndiff = compare(case, kern(), plain())
-        if ndiff:
-            raise RuntimeError(f"int8 {case}: {ndiff} elements differ from the plain version")
-        lib_err, lib_diff = compare(case, library(), plain(), what="the _int_mm chain")
-        bound_ms, bound_by, ops, nbytes = int8_bound(m, n, dims, pool, acts)
-        design_ms, design_by, design_ops, design_bytes = int8_design_bound(
-            m, n, dims, pool, acts, g)
+        x = torch.randn(m, n, prepared.wq[0].shape[0], generator=gen, device=dev)
+        row, design = int8_case_row(case, (prepared,), x, pool, acts, relu_last, bw)
         if case.startswith("serve:"):
-            served_design.append((design_ops, design_bytes))
-        row = {
-            "name": f"quantized_mlp_chain:{case}", "case": case, "shape": [m, n, dims],
-            "block_windows": g, "padded_windows": -m % g,
-            "route": "cuda", "source": "ampnet_tpu_torch/csrc/quantized_mlp.cu",
-            "replaces": "ampnet_tpu/ops/pallas/quantized_mlp.py:46",
-            "max_abs_err": err, "elements_differ": ndiff,
-            "library_max_abs_err": lib_err, "library_elements_differ": lib_diff,
-            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops, "bytes": nbytes,
-        }
-        iters = 20 if m * n >= 1 << 16 else 100
-        # in turns, plain kernel kernel plain, within one card and one call
-        p1, k1, k2, p2 = (host_ms(f, iters) for f in (plain, kern, kern, plain))
-        l1, l2 = host_ms(library, iters), host_ms(library, iters)
-        dp1, dk1, dk2, dp2 = (device_ms(f, iters) for f in (plain, kern, kern, plain))
-        dl1, dl2 = device_ms(library, iters), device_ms(library, iters)
-        row.update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
-                    "device_ms": (dk1 + dk2) / 2, "plain_device_ms": (dp1 + dp2) / 2,
-                    "library_device_ms": (dl1 + dl2) / 2,
-                    "cuda_launches_per_call": {
-                        name: sum(cuda_launches(fn).values())
-                        for name, fn in (("kernel", kern), ("plain", plain), ("library", library))}})
-        if case.startswith("serve:"):
-            _say(f"  int8 {case}: the kernel's device operations per call: "
-                 + json.dumps(cuda_launches(kern)))
-        _say(f"  int8 {case:22s} M={m:4d} N={n:5d} dims={dims} g={g} err={err:.3g} "
-             f"differ={ndiff} library_err={lib_err:.3g} kernel={row['ms']:.4f} ms "
-             f"(device {row['device_ms']:.4f}) plain={row['plain_ms']:.4f} ms "
-             f"(device {row['plain_device_ms']:.4f}) library={row['library_ms']:.4f} ms "
-             f"(device {row['library_device_ms']:.4f}) "
-             f"bound={bound_ms:.4f} ms ({bound_by}) share={bound_ms / row['device_ms']:.3f} "
-             f"design bound={design_ms:.4f} ms ({design_by}) launches/call="
-             + json.dumps(row["cuda_launches_per_call"]))
+            served_design.append(design)
         rows.append(row)
         del x
     serve = [r for r in rows if r["case"].startswith("serve:")]
@@ -646,11 +689,14 @@ LAUNCHES_PER_FORWARD = {
 }
 
 
-def serve_phase(model, cfg, backend: str, device: str = "cuda"):
+def serve_phase(model, cfg, backend: str, device: str = "cuda", ckpt=None):
     """Phase 5: the serve entry point answers concurrent clients with
     ``backend``. Returns (launches of each kernel counted while serving,
-    bucket forwards dispatched). The fused run also traces a warm round and
-    prints the request breakdown."""
+    bucket forwards dispatched, the labels served by cloud, the clouds). The
+    clouds carry the model's ``num_features + extra_features`` columns. It
+    serves ``model`` as a reference ``.pth`` (and the fused run also traces a
+    warm round and prints the request breakdown), or the checkpoint directory
+    ``ckpt`` when given (phase 10's geometry checkpoint)."""
     from ampnet_tpu_torch.cli.main import build_parser, make_server
     from ampnet_tpu_torch.core.weights import flax_variables, save_reference_pth
     from ampnet_tpu_torch.ops import cuda_build
@@ -662,7 +708,8 @@ def serve_phase(model, cfg, backend: str, device: str = "cuda"):
     rng = np.random.default_rng(SEED)
     clouds = []
     for n in SERVE_CLOUD_POINTS:
-        c = rng.normal(size=(n, cfg.data.num_features)).astype(np.float32) * 0.5
+        c = rng.normal(size=(n, cfg.data.num_features + cfg.data.extra_features)).astype(
+            np.float32) * 0.5
         c[:, :2] = rng.uniform(-1.0, 1.0, size=(n, 2))
         clouds.append(c)
     # (client, clouds, wire): 5 binary requests and 1 JSON request from 3
@@ -680,9 +727,11 @@ def serve_phase(model, cfg, backend: str, device: str = "cuda"):
 
     cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as tmp:
-        ckpt = os.path.join(tmp, "smoke_attention.pth")
-        save_reference_pth(flax_variables(model), ckpt,
-                           meta={"number_of_points": cfg.data.n_points})
+        details = ckpt is None
+        if details:
+            ckpt = os.path.join(tmp, "smoke_attention.pth")
+            save_reference_pth(flax_variables(model), ckpt,
+                               meta={"number_of_points": cfg.data.n_points})
         args = build_parser().parse_args([
             "serve", "--model_checkpoint", ckpt, "--backend", backend,
             "--device", device, "--host", "127.0.0.1", "--port", "0",
@@ -767,14 +816,14 @@ def serve_phase(model, cfg, backend: str, device: str = "cuda"):
             _say("  launches while serving: " + ", ".join(
                 f"{name} {launches[name]} (= {per} x {forwards} bucket forwards)"
                 for name, per in LAUNCHES_PER_FORWARD[backend].items()))
-            if backend == "fused":
+            if backend == "fused" and details:
                 warm_round(run_clients, served)
                 _say("  breakdown: " + json.dumps(request_breakdown(inferencer, clouds[:4])))
         finally:
             inferencer.dispatch_many, inferencer.fetch_many = dispatch, fetch
             server.close()
             thread.join(timeout=60)
-    return launches, forwards
+    return launches, forwards, served, clouds
 
 
 def warm_round(run_clients, served):
@@ -968,12 +1017,13 @@ def write_learnable_dataset(folder, seed=SEED):
     return names
 
 
-def step_batch(folder, names, dev):
-    """The first STEP_BATCH train clouds as one batch on ``dev``."""
+def step_batch(folder, names, dev, batch=STEP_BATCH, extra=0):
+    """The first ``batch`` train clouds as one batch on ``dev``, with the 9
+    model features and ``extra`` geometric columns."""
     from ampnet_tpu_torch.data.datasets import WindowedCloudDataset
     from ampnet_tpu_torch.data.pipeline import PaddedBatcher, to_device_batch
 
-    b = PaddedBatcher(WindowedCloudDataset(folder, names[:STEP_BATCH]), STEP_BATCH,
+    b = PaddedBatcher(WindowedCloudDataset(folder, names[:batch], extra_features=extra), batch,
                       n_points=TRAIN_POINTS, max_windows=TRAIN_WINDOWS, shuffle=False)
     return to_device_batch(next(iter(b)), dev)
 
@@ -998,9 +1048,11 @@ def biases_before_batch_norm(model) -> set:
     return out
 
 
-def step_on_card_and_cpu(model, cfg, batch, dev, dtype, step=None) -> dict:
-    """One train_step (``step``, else the segmentation step) in ``dtype`` on
-    the card and on a CPU copy of ``model``, same batch: how far loss,
+def step_on_card_and_cpu(model, cfg, batch, dev, dtype, step=None, step_for=None) -> dict:
+    """One train_step (``step``, else the segmentation step, else
+    ``step_for(device, dtype)``'s step for each side, as a distilling step
+    needs its teachers there) in ``dtype`` on the card and on a CPU copy of
+    ``model``, same batch: how far loss,
     gradients, parameters and BatchNorm statistics land apart. A parameter
     entry's sign is determined where the CPU's |g| exceeds max(GRAD_NOISE,
     1e-4 of its parameter's largest |g|); a bias that feeds a
@@ -1010,15 +1062,19 @@ def step_on_card_and_cpu(model, cfg, batch, dev, dtype, step=None) -> dict:
     from ampnet_tpu_torch.train.state import create_train_state
     from ampnet_tpu_torch.train.step import make_step_fns
 
-    step = step or make_step_fns(cfg, augment=False)[0]
+    if step_for is not None:
+        steps = {"card": step_for(dev, dtype), "cpu": step_for(torch.device("cpu"), dtype)}
+    else:
+        step = step or make_step_fns(cfg, augment=False)[0]
+        steps = {"card": step, "cpu": step}
     states = {"card": create_train_state(cfg, copy.deepcopy(model).to(dev, dtype), 1, dev),
               "cpu": create_train_state(cfg, copy.deepcopy(model).to("cpu", dtype), 1, "cpu")}
     cast = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
     t0 = time.perf_counter()
-    loss = {"card": float(step(states["card"], cast)["loss"])}
+    loss = {"card": float(steps["card"](states["card"], cast)["loss"])}
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    loss["cpu"] = float(step(states["cpu"], {k: v.cpu() for k, v in cast.items()})["loss"])
+    loss["cpu"] = float(steps["cpu"](states["cpu"], {k: v.cpu() for k, v in cast.items()})["loss"])
     cpu_s = time.perf_counter() - t0
     out = {"loss_card": loss["card"], "loss_cpu": loss["cpu"],
            "loss_rel_err": abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]),
@@ -1057,7 +1113,8 @@ def step_on_card_and_cpu(model, cfg, batch, dev, dtype, step=None) -> dict:
     return out
 
 
-def card_against_cpu_step(cfg, batch, dev, model=None, step=None, what="") -> dict:
+def card_against_cpu_step(cfg, batch, dev, model=None, step=None, what="",
+                          off_share=1e-4, step_for=None) -> dict:
     """(b): one train_step on the card against the same step on a CPU copy,
     same weights and batch, dropout 0, no augmentation.
 
@@ -1065,17 +1122,18 @@ def card_against_cpu_step(cfg, batch, dev, model=None, step=None, what="") -> di
     to 1e-4 of its parameter's largest, each determined parameter entry to
     1e-4. float32, the path training runs, is held to the loss (1e-5
     relative), every parameter within the two updates' reach (2 lr), at most
-    1e-4 of the determined entries beyond 1e-4, and gradients within 5e-2 of
-    their max: each max-pool routes a channel's gradient to one of 2048
-    points, and near-ties fall to another point under another summation
-    order (PERF.md §6 has the measured spread; tests/test_torch_train.py
-    holds float32 to 1e-4 at 64 points a window, against JAX). ``model``
-    (else the seeded flagship) and ``step`` (else the segmentation step)
-    serve the other families."""
+    ``off_share`` (1e-4) of the determined entries beyond 1e-4, and gradients
+    within 5e-2 of their max: each max-pool routes a channel's gradient to
+    one of 2048 points, and near-ties fall to another point under another
+    summation order (PERF.md §6 has the measured spread;
+    tests/test_torch_train.py holds float32 to 1e-4 at 64 points a window,
+    against JAX). ``model`` (else the seeded flagship) and ``step`` (else the
+    segmentation step) serve the other families; ``step_for`` a step that
+    differs by device (``step_on_card_and_cpu``)."""
     model = (model or seeded_model(cfg)).train()
     res = {}
     for name, dtype in (("float64", torch.float64), ("float32", torch.float32)):
-        r = step_on_card_and_cpu(model, cfg, batch, dev, dtype, step)
+        r = step_on_card_and_cpu(model, cfg, batch, dev, dtype, step, step_for)
         res[name] = r
         _say(f"  {what}card step against CPU step, {name}, batch "
              f"{list(batch['points'].shape)}: " + json.dumps(r))
@@ -1086,10 +1144,21 @@ def card_against_cpu_step(cfg, batch, dev, model=None, step=None, what="") -> di
             ok = common and r["grad_err_of_max"] <= 1e-4 and r["param_err"] <= 1e-4
         else:
             ok = (common and r["grad_err_of_max"] <= 5e-2 and r["param_err"] <= reach
-                  and r["params_beyond_1e-4"] <= 1e-4 * r["params_determined"])
+                  and r["params_beyond_1e-4"] <= off_share * r["params_determined"])
         if not ok:
             raise RuntimeError(f"the card's {what}{name} train step does not match the CPU's")
     return res
+
+
+def train_csv_rows(out_dir) -> dict:
+    """{epoch: {tag: value}} of the attention segmenter's train CSV under
+    ``out_dir``."""
+    rows = {}
+    with open(os.path.join(out_dir, "logs", "attention_segmentation_train", "scalars.csv")) as f:
+        for line in f.read().splitlines()[1:]:
+            _, step_, tag, value = line.split(",")
+            rows.setdefault(int(step_), {})[tag] = float(value)
+    return rows
 
 
 def train_cli(data_dir, out_dir, dev) -> dict:
@@ -1107,11 +1176,7 @@ def train_cli(data_dir, out_dir, dev) -> dict:
     if rc != 0:
         raise RuntimeError(f"train exited {rc}: {text[-2000:]}")
     summary = json.loads(text[text.index("{"): text.rindex("}") + 1])
-    rows = {}
-    with open(os.path.join(out_dir, "logs", "attention_segmentation_train", "scalars.csv")) as f:
-        for line in f.read().splitlines()[1:]:
-            _, step_, tag, value = line.split(",")
-            rows.setdefault(int(step_), {})[tag] = float(value)
+    rows = train_csv_rows(out_dir)
     ckpt = os.path.join(out_dir, "checkpoints", "attention_segmentation_best")
     losses = [rows[e]["loss"] for e in sorted(rows) if "loss" in rows[e]]
     out = {"wall_s": wall, "train_loss": losses,
@@ -1449,7 +1514,7 @@ def eval_cli(run, argv):
         launches = {name: fn.launches for name, fn in wrappers.items()}  # ... and ends here
     if rc != 0:
         raise RuntimeError(f"{' '.join(argv[:2])} exited {rc}: {buf.getvalue()[-2000:]}")
-    for name, per in {**EVAL_RUNS, **TILE_RUNS}[run].items():
+    for name, per in {**EVAL_RUNS, **TILE_RUNS, **GEOM_RUNS}[run].items():
         if launches[name] != per * rec["forwards"]:
             raise RuntimeError(f"{run}: {name} launched {launches[name]} times for "
                                f"{rec['forwards']} bucket forwards; want {per} each")
@@ -1740,10 +1805,11 @@ def check_tile_run(run, tiles, out_dir, rec, ckpt, backend, dev) -> None:
     recorded = list(rec["labels"])
     with open(os.path.join(out_dir, "tile_metrics.json")) as f:
         metrics = json.load(f)
+    geom = (cfg.data.extra_features, cfg.data.geom_k, cfg.data.geom_radius_norm)
     for path in tiles:
         name = os.path.splitext(os.path.basename(path))[0]
         las = read_las(path)
-        feats, kept, _ = tile_windows(las)
+        feats, kept, _ = tile_windows(las, 100.0, 100.0, 0, 2.0, *geom)
         want = direct.predict_many(feats, seeds=list(range(len(feats))))
         got, recorded = recorded[: len(feats)], recorded[len(feats):]
         if len(got) != len(want) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
@@ -1857,7 +1923,7 @@ def tiles_phase(ckpt, dev, card, work, windows=TILE_WINDOWS, points=TILE_WINDOW_
                                                     "points_per_sec")}
     _say("data: " + json.dumps(data))
     _say(f"  tiles phase: {time.perf_counter() - t_phase:.2f} s")
-    return launches
+    return launches, data
 
 
 # phase 9: the GRU, classification and PointNet families at full published
@@ -2240,6 +2306,322 @@ def family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work) -
     return out
 
 
+# phase 10: geometry and distillation at full published width. GEOM_EXTRA
+# eigenfeature columns after the 9 model features; mlp_a then reads 3 + 15
+GEOM_EXTRA = 6
+GEOM_MLP_A = (18, 64, 64)
+# kernel launches per bucket forward of each phase 10 run that launches one
+GEOM_RUNS = {
+    "geom_test_fused": LAUNCHES_PER_FORWARD["fused"],
+    "geom_test_int8": LAUNCHES_PER_FORWARD["int8"],
+    "geom_tile_infer_fused": LAUNCHES_PER_FORWARD["fused"],
+    "geom_tile_infer_int8": LAUNCHES_PER_FORWARD["int8"],
+    "geom_demo_test": LAUNCHES_PER_FORWARD["fused"],
+}
+
+
+def geom_cfg(dropout=0.3, **model_kw):
+    from ampnet_tpu_torch.core.config import AMPNetConfig, DataConfig, ModelConfig
+
+    return AMPNetConfig(data=DataConfig(extra_features=GEOM_EXTRA),
+                        model=ModelConfig(dropout=dropout, **model_kw))
+
+
+def write_geom_dataset(folder, seed=SEED):
+    """Phase 6's learnable dataset with the 6 eigenfeature columns after the
+    13 (``kmeans_<name>.pt`` artifacts ``[2048, 19, 9]``): seeded values in
+    [0, 1], verticality and linearity raised where the raw class is a tower
+    or a line, so the columns carry the label too."""
+    from ampnet_tpu_torch.data.io_utils import load_cloud, save_cloud
+
+    names = write_learnable_dataset(folder, seed)
+    rng = np.random.default_rng(seed + 17)
+    for name in names:
+        path = os.path.join(folder, "kmeans_" + name.replace(".pkl", ".pt"))
+        pc = load_cloud(path)
+        geo = rng.uniform(0.0, 0.6, size=(pc.shape[0], GEOM_EXTRA, pc.shape[2]))
+        geo[:, 3] += 0.4 * (pc[:, 3] == 15)  # verticality of towers
+        geo[:, 0] += 0.4 * (pc[:, 3] == 14)  # linearity of lines
+        save_cloud(path, np.concatenate([pc, geo.astype(np.float32)], axis=1))
+    return names
+
+
+def geom_kernel_rows(model, dev) -> dict:
+    """(b): both kernels against their plain versions at ``serve_geom:mlp_a``,
+    [18 windows, 4096 points, (18, 64, 64)] with activations out (Cin 18:
+    the scalar x-load path, padded to 32 in both kernels), timed as phase 3
+    times them (``fused_case_row``, ``int8_case_row``) → {kernel: row}."""
+    from ampnet_tpu_torch.models.folded_infer import folded_chain_params
+    from ampnet_tpu_torch.models.quantized_infer import quantize_encoder_chains
+
+    case, (m, n) = "serve_geom:mlp_a", SERVE_GEOM
+    ws, bs = folded_chain_params(model.encoder.mlp_a)
+    ws = [w.detach().contiguous() for w in ws]
+    bs = [b.detach().contiguous() for b in bs]
+    dims = (ws[0].shape[0], *(w.shape[1] for w in ws))
+    if dims != GEOM_MLP_A:
+        raise RuntimeError(f"the geometry model's mlp_a is {list(dims)}, want {list(GEOM_MLP_A)}")
+    x = torch.randn(m, n, dims[0], generator=torch.Generator(device=dev).manual_seed(SEED + 7),
+                    device=dev)
+    fused = fused_case_row(case, ws, bs, x, False, True, True)
+    # quantized as the forward holds it: prepared on the card, plain on the CPU
+    int8, _ = int8_case_row(case, quantize_encoder_chains(model)[0], x, False, True, True, 0)
+    return {"fused_mlp_chain": fused, "quantized_mlp_chain": int8}
+
+
+def knn_ms(cfg, batch, dev) -> float:
+    """Device ms of the edge block's kNN (distances and the pick of k) over
+    one batch's windows, from CUDA events, warm."""
+    from ampnet_tpu_torch.models.amp import knn_indices
+
+    b, w, n, _ = batch["points"].shape
+    coords = batch["points"][..., :cfg.model.point_dim].reshape(b * w, n, -1)
+    knn_indices(coords, None, cfg.model.local_agg_k)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        knn_indices(coords, None, cfg.model.local_agg_k)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 3
+
+
+def geom_warm_step(cfg, batch, dev, teacher=None) -> dict:
+    """ms per warm train step of ``cfg`` (default recipe; 2 warm + 3 timed on
+    one batch, host clock ending in a sync), windows/s and peak GiB."""
+    from ampnet_tpu_torch.train.state import create_train_state
+    from ampnet_tpu_torch.train.step import make_step_fns
+
+    gc_cuda()
+    state = create_train_state(cfg, seeded_model(cfg).train(), 1, dev)
+    step = make_step_fns(cfg, teacher=teacher)[0]
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        m = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    b, w = batch["points"].shape[:2]
+    out = {"batch": list(batch["points"].shape), "step_ms": ms,
+           "windows_per_sec": b * w / (ms / 1e3),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loss": float(m["loss"])}
+    if "distill_loss" in m:
+        out["distill_loss"] = float(m["distill_loss"])
+    del state
+    gc_cuda()
+    return out
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def geom_train_cli(run, data_dir, out_dir, dev, flags, epochs=2):
+    """``train`` at batch TRAIN_BATCH x 9 x 2048 through ``cli.main.main``
+    with ``flags``, 0 kernel launches → (checkpoint directory, the epoch rows
+    of its CSV, wall s)."""
+    stdout, err, _, wall = family_cli(run, [
+        "train", data_dir, "--path_list_files", data_dir, "--out_path", out_dir,
+        "--device", str(dev), "--epochs", str(epochs), "--batch_size", str(TRAIN_BATCH),
+        "--seed", str(SEED), *flags])
+    rows = train_csv_rows(out_dir)
+    losses = [r["loss"] for _, r in sorted(rows.items()) if "loss" in r]
+    if len(losses) != epochs or not all(np.isfinite(losses)):
+        raise RuntimeError(f"{run}: train losses {losses}")
+    return os.path.join(out_dir, "checkpoints", "attention_segmentation_best"), rows, err, wall
+
+
+def geometry_phase(tiles_dir, tiles_data, dev, card, work) -> dict:
+    """Phase 10: geometry and distillation at full published width. (a)
+    ``preprocess --geom_features`` of phase 8's tiles (``--geom_k 24``, then
+    ``--geom_radius_norm median``): columns 13..18 in [0, 1], the first 13
+    equal to phase 8's plain artifacts bit for bit; (b) both kernels at
+    ``serve_geom:mlp_a`` (``geom_kernel_rows``); (c) a 15-column learnable
+    dataset, the geometry model's card step against the CPU's, ``train
+    --geom_features`` 2 epochs, its warm step; (d) that checkpoint served over
+    HTTP under ``fused`` and ``int8`` with 15-column bodies (answers =
+    ``predict_many``, labels against ``xla``, 4 and 2 + 2 launches a bucket
+    forward), then ``test`` of (a)'s clouds and whole-tile ``infer`` of phase
+    8's tiles under both; (e) ``train --geom_features --local_agg edge
+    --att_geom_tokens`` at 32 x 9 x 2048, its card step against the CPU's,
+    warm step and kNN ms, ``test`` under ``xla``, ``--backend fused`` exits
+    1 with the JAX message, 0 launches; (f) ``train --distill_from (c),(e)``
+    of a plain student with ``--grad_accum`` 1 and 2, its card step against
+    the CPU's, 0 launches in the teachers; (g) ``demo --geom_features`` →
+    (each run's launches of each kernel, the kernel rows of (b)). Prints the
+    ``geometry:`` line."""
+    from ampnet_tpu_torch.core.checkpoint import load_model
+    from ampnet_tpu_torch.core.config import AMPNetConfig, ModelConfig, TrainConfig
+    from ampnet_tpu_torch.data.datasets import EvalCloudDataset
+    from ampnet_tpu_torch.data.io_utils import load_cloud, read_split_list
+    from ampnet_tpu_torch.infer.tiled import TiledInferencer
+    from ampnet_tpu_torch.train.step import make_step_fns
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "geometry")
+    os.makedirs(root)
+    line = {"card": card}
+    las_dir = os.path.join(tiles_dir, "las")
+    tiles = sorted(os.path.join(las_dir, f) for f in os.listdir(las_dir))
+    # (a) preprocess with the eigenfeature columns, both radius normalisations
+    pre = {}
+    for tag, flags in (("absolute", ["--geom_k", "24"]), ("median", ["--geom_radius_norm",
+                                                                     "median"])):
+        pre[tag] = os.path.join(root, f"pre_{tag}")
+        line[f"preprocess_{tag}_s_per_tile"] = quiet_cli(
+            ["preprocess", "--in_path", las_dir, "--out_path", pre[tag], "--geom_features",
+             *flags]) / len(tiles)
+        plain_dir = os.path.join(tiles_dir, "pre_w1")
+        files = sorted(os.listdir(pre[tag]))
+        if files != sorted(os.listdir(plain_dir)):
+            raise RuntimeError(f"preprocess --geom_features ({tag}) wrote other files")
+        for f in files:
+            if f.endswith(".txt"):
+                continue
+            a, b = load_cloud(os.path.join(pre[tag], f)), load_cloud(os.path.join(plain_dir, f))
+            if a.shape[1] != 19 or not np.array_equal(a[:, :13], b):
+                raise RuntimeError(f"{tag} {f}: {a.shape}, its first 13 columns differ from "
+                                   "the plain preprocess's")
+            if not ((a[:, 13:] >= 0).all() and (a[:, 13:] <= 1).all()):
+                raise RuntimeError(f"{tag} {f}: geometric columns outside [0, 1]")
+    line["plain_preprocess_s_per_tile"] = tiles_data["preprocess_s_per_tile"]
+    _say(f"  (a) preprocess --geom_features: {line['preprocess_absolute_s_per_tile']:.2f} s a "
+         f"tile (median {line['preprocess_median_s_per_tile']:.2f}) against "
+         f"{line['plain_preprocess_s_per_tile']:.2f} plain; 19 columns, the first 13 equal")
+    # (b) the kernels at the geometry shape
+    gcfg = geom_cfg()
+    rows = geom_kernel_rows(seeded_model(gcfg).to(dev), dev)
+    # (c) a 15-column dataset; the geometry model's step, train command, warm step
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    names = write_geom_dataset(data)
+    batch = step_batch(data, names, dev, extra=GEOM_EXTRA)
+    if batch["points"].shape[-1] != 15:
+        raise RuntimeError(f"geometry batch {list(batch['points'].shape)}")
+    card_against_cpu_step(geom_cfg(dropout=0.0), batch, dev, what="geometry: ")
+    geom_ckpt, _, _, wall = geom_train_cli("train geom", data, os.path.join(root, "geom"), dev,
+                                           ["--geom_features"])
+    big = step_batch(data, names, dev, TRAIN_BATCH, GEOM_EXTRA)
+    line["geom_train"] = {"cli_wall_s": wall, **geom_warm_step(gcfg, big, dev)}
+    _say("  (c) geom train: " + json.dumps(line["geom_train"]))
+    # (d) serve, test and whole-tile infer of the geometry checkpoint
+    cfg, model = load_model(geom_ckpt, dev)
+    launches, served = {}, {}
+    for backend in ("fused", "int8"):
+        counts, _, served[backend], clouds = serve_phase(
+            model, cfg, backend, str(dev), ckpt=geom_ckpt)
+        launches[f"geom_serve_{backend}"] = counts
+    xla = TiledInferencer(model, cfg, backend="xla", device=dev).predict_many(
+        clouds, seeds=[0] * len(clouds))
+    agree = {b: float(np.mean(np.concatenate([served[b][i] == xla[i] for i in served[b]])))
+             for b in served}
+    line["geom_serve_label_agreement_with_xla"] = agree
+    _say(f"  (d) served 15-column bodies: labels against xla fused {agree['fused']:.6f} "
+         f"(>= 0.999), int8 {agree['int8']:.6f} (> 0.97)")
+    if not (agree["fused"] >= 0.999 and agree["int8"] > 0.97):
+        raise RuntimeError("the geometry checkpoint's served labels do not track xla")
+    test_dir = pre["absolute"]
+    files = (read_split_list(os.path.join(test_dir, "test_seg_files.txt"))
+             or read_split_list(os.path.join(test_dir, "val_seg_files.txt")))
+    ds = EvalCloudDataset(test_dir, files, extra_features=GEOM_EXTRA)
+    samples = [ds[i] for i in range(len(ds))]
+    n_test = sum(len(s["labels"]) for s in samples)
+    for backend in ("fused", "int8"):
+        run = f"geom_test_{backend}"
+        summary, launches[run], rec, wall = eval_cli(run, [
+            "test", test_dir, "--path_list_files", test_dir, "--model_checkpoint", geom_ckpt,
+            "--backend", backend, "--device", str(dev), "--out_path",
+            os.path.join(root, run)])
+        same_summary(run, summary, summary_of(rec["labels"], samples, cfg.model.num_classes))
+        line[run] = {"points": n_test, "wall_s": wall, "points_per_sec": n_test / wall,
+                     "miou": summary["miou"], "bucket_forwards": rec["forwards"]}
+        run = f"geom_tile_infer_{backend}"
+        out = os.path.join(root, run)
+        _, launches[run], rec, wall = eval_cli(run, [
+            "infer", las_dir, "--model_checkpoint", geom_ckpt, "--backend", backend,
+            "--device", str(dev), "--out_path", out])
+        check_tile_run(run, tiles, out, rec, geom_ckpt, backend, dev)
+        line[run] = {"wall_s": wall, "points_per_sec": tiles_data["las_points"] / wall,
+                     "bucket_forwards": rec["forwards"]}
+    _say("  (d) test and whole-tile infer: " + json.dumps(
+        {k: v for k, v in line.items() if k.startswith(("geom_test", "geom_tile"))}))
+    # (e) the edge block and the geometry tokens at full width
+    ecfg = geom_cfg(local_agg="edge", att_geom_tokens=True)
+    edge_flags = ["--geom_features", "--local_agg", "edge", "--att_geom_tokens"]
+    # the edge block max-pools 16 neighbours per point and channel, 16 times
+    # the pools of the trunks, so float32 near-ties move more entries: 348 of
+    # 1,215,316 determined (2.9e-4) on an H100 80GB HBM3 at 700 W, where
+    # float64 held every gradient to 1.1e-13 of its max (PERF.md §6); float32
+    # is held to 5e-4 here
+    with no_kernel_launches("edge step"):
+        card_against_cpu_step(geom_cfg(dropout=0.0, local_agg="edge", att_geom_tokens=True),
+                              batch, dev, what="edge + tokens: ", off_share=5e-4)
+    edge_ckpt, _, _, wall = geom_train_cli("train edge", data, os.path.join(root, "edge"), dev,
+                                           edge_flags)
+    with no_kernel_launches("edge warm step"):
+        line["edge_train"] = {"cli_wall_s": wall, **geom_warm_step(ecfg, big, dev),
+                              "knn_ms": knn_ms(ecfg, big, dev)}
+    _say("  (e) edge + tokens train: " + json.dumps(line["edge_train"]))
+    stdout, _, rec, wall = family_cli("test edge", [
+        "test", test_dir, "--path_list_files", test_dir, "--model_checkpoint", edge_ckpt,
+        "--device", str(dev), "--out_path", os.path.join(root, "edge_test")])
+    same_summary("edge test", last_json(stdout), summary_of(
+        rec["labels"], samples, cfg.model.num_classes))
+    line["edge_test"] = {"wall_s": wall, "points_per_sec": n_test / wall,
+                         "miou": last_json(stdout)["miou"]}
+    _, err, _, _ = family_cli("test edge --backend fused", [
+        "test", test_dir, "--path_list_files", test_dir, "--model_checkpoint", edge_ckpt,
+        "--backend", "fused", "--device", str(dev)], expect=1)
+    if ("backend 'fused' reassembles the reference encoder layout and does not know the "
+            "local_agg='edge' edge block") not in err:
+        raise RuntimeError(f"test --backend fused of the edge checkpoint: {err}")
+    # (f) distillation from (c) and (e) into a plain 9-column student
+    teacher = []
+    for c in (geom_ckpt, edge_ckpt):
+        t_cfg, t_model = load_model(c, dev)
+        teacher.append((t_cfg, [t_model]))
+    student = AMPNetConfig(model=ModelConfig(dropout=0.0), train=TrainConfig(distill_alpha=0.5))
+
+    def distill_step(device, dtype):
+        """The student's step with copies of the teachers on ``device``."""
+        groups = [(c, [copy.deepcopy(m[0]).to(device, dtype)]) for c, m in teacher]
+        return make_step_fns(student, augment=False, teacher=groups)[0]
+
+    with no_kernel_launches("distillation step"):
+        card_against_cpu_step(student, batch, dev, what="distillation: ", step_for=distill_step)
+    line["distill"] = {}
+    for accum in (1, 2):
+        run = f"train distill grad_accum {accum}"
+        _, rows_, err, wall = geom_train_cli(run, data, os.path.join(root, f"distill{accum}"),
+                                             dev, ["--distill_from", f"{geom_ckpt},{edge_ckpt}",
+                                                   "--grad_accum", str(accum)], epochs=1)
+        if "teacher reads 6 extra geom columns" not in err:
+            raise RuntimeError(f"{run}: the batch did not widen to the teacher's columns: {err}")
+        line["distill"][f"grad_accum_{accum}"] = {
+            "cli_wall_s": wall, "distill_loss": rows_[0]["distill_loss"],
+            "epoch_seconds": rows_[0]["epoch_seconds"]}
+    with no_kernel_launches("distillation warm step"):
+        line["distill"]["warm"] = geom_warm_step(
+            AMPNetConfig(train=TrainConfig(distill_alpha=0.5)), big, dev, teacher=teacher)
+    _say("  (f) distillation: " + json.dumps(line["distill"]))
+    # (g) demo --geom_features on the card
+    summary, launches["geom_demo_test"], _, line["demo_s"] = eval_cli("geom_demo_test", [
+        "demo", "--out_path", os.path.join(root, "demo"), *DEMO_ARGS, "--geom_features",
+        "--backend", "fused", "--device", str(dev)])
+    if not np.isfinite(summary["miou"]) or summary["n_clouds"] < 1:
+        raise RuntimeError(f"demo --geom_features: summary {summary}")
+    line["phase_s"] = time.perf_counter() - t_phase
+    _say("geometry: " + json.dumps(line))
+    _say(f"  geometry phase: {line['phase_s']:.2f} s")
+    return launches, rows
+
+
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, and the host
     solver by ``g++``, all started together, and loaded."""
@@ -2271,55 +2653,68 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     _say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    _say("[1/10] card")
+    _say("[1/11] card")
     card = card_line()
     _say(card)
 
-    _say("[2/10] build")
+    _say("[2/11] build")
     build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
-    _say("[3/10] kernels against their plain versions")
+    _say("[3/11] kernels against their plain versions")
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/10] model: fused and int8 against the module forward")
+    _say("[4/11] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
-    _say("[5/10] serve")
+    _say("[5/11] serve")
     runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
     cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as work:
-        _say("[6/10] train")
+        _say("[6/11] train")
         train_launches, ckpt = train_phase(dev, card, work)
 
-        _say("[7/10] evaluate")
+        _say("[7/11] evaluate")
         eval_launches = evaluate_phase(ckpt, dev, card, work)
 
-        _say("[8/10] tiles: host data stages, whole-tile infer, demo")
-        eval_launches.update(tiles_phase(ckpt, dev, card, work))
+        _say("[8/11] tiles: host data stages, whole-tile infer, demo")
+        tile_launches, tiles_data = tiles_phase(ckpt, dev, card, work)
+        eval_launches.update(tile_launches)
 
-        _say("[9/10] families: gru, classification, baseline, classic, pointnet2")
+        _say("[9/11] families: gru, classification, baseline, classic, pointnet2")
         families_phase(ckpt, dev, card, work)
 
-    _say("[10/10] results")
+        _say("[10/11] geometry: eigenfeature columns, edge block, geom tokens, distillation")
+        geom_launches, geom_rows = geometry_phase(os.path.join(work, "tiles"), tiles_data,
+                                                     dev, card, work)
+
+    _say("[11/11] results")
     # launches only where the serving runs counted them: each kernel in both
     # runs, and each serving chain once per bucket forward that ran it (its M
     # there is 18 x clouds in the bucket); the other cases are shapes the
     # main path did not run
-    fwd = {backend: forwards for backend, (_, forwards) in runs.items()}
+    fwd = {backend: forwards for backend, (_, forwards, *_) in runs.items()}
+    per_forward = {**GEOM_RUNS, "geom_serve_fused": LAUNCHES_PER_FORWARD["fused"],
+                   "geom_serve_int8": LAUNCHES_PER_FORWARD["int8"]}
     for total, name in ((fused_total, "fused_mlp_chain"), (int8_total, "quantized_mlp_chain")):
-        total["launches_by_run"] = {backend: counts[name] for backend, (counts, _) in runs.items()}
+        total["launches_by_run"] = {backend: counts[name]
+                                    for backend, (counts, *_) in runs.items()}
         if name == "fused_mlp_chain":  # the trained checkpoint, served under fused
             total["launches_by_run"]["train_serve"] = train_launches
         for run, counts in eval_launches.items():  # the phase 7-8 runs that launch it
             if {**EVAL_RUNS, **TILE_RUNS}[run][name]:
                 total["launches_by_run"][run] = counts[name]
         total["launches_by_run"]["families"] = 0  # phase 9 checked 0 on every run
+        for run, counts in geom_launches.items():  # phase 10's runs that launch it
+            if per_forward[run][name]:
+                total["launches_by_run"][run] = counts[name]
+        # phase 10 checked 0 on the edge + token runs and in the teachers
+        total["launches_by_run"]["geometry_edge_tokens_distill"] = 0
         total["launches"] = sum(total["launches_by_run"].values())
     tnets = ("serve:input_tnet", "serve:feature_tnet")  # the T-Nets run under both backends
     for row in fused_cases:
@@ -2327,6 +2722,14 @@ def main() -> int:
                            if row["case"].startswith("serve:") else None)
     for row in int8_cases:
         row["launches"] = fwd["int8"] if row["case"].startswith("serve:") else None
+    # serve_geom:mlp_a runs once a bucket forward of phase 10's fused runs
+    # (fused_mlp_chain) and int8 runs (quantized_mlp_chain)
+    for cases, name, backend in ((fused_cases, "fused_mlp_chain", "fused"),
+                                 (int8_cases, "quantized_mlp_chain", "int8")):
+        per = LAUNCHES_PER_FORWARD[backend][name]
+        cases.append({**geom_rows[name], "launches": sum(
+            counts[name] // per for run, counts in geom_launches.items()
+            if (per_forward[run] == LAUNCHES_PER_FORWARD[backend]))})
     _say(json.dumps({"kernels": [{**fused_total, "cases": fused_cases},
                                  {**int8_total, "cases": int8_cases}]}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

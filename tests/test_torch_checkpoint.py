@@ -309,13 +309,7 @@ def test_trainer_train_and_serve_default_to_the_card(tmp_path, small_cfg, monkey
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--arch", "gru", "--att_geom_tokens"], "item 4"),
-    (["--task", "classification", "--local_agg", "edge"], "item 4"),
     (["--num_devices", "2"], "item 5"),
-    (["--distill_from", "a,b"], "item 4"),
-    (["--local_agg", "edge"], "item 4"),
-    (["--geom_features"], "item 4"),
-    (["--att_geom_tokens"], "item 4"),
     (["--dtype", "bfloat16"], "item 7"),
     (["--oversample_factor", "2"], "item 7"),
     (["--seg_weighing", "INS"], "item 7"),
@@ -324,6 +318,43 @@ def test_trainer_train_and_serve_default_to_the_card(tmp_path, small_cfg, monkey
 def test_train_refuses_options_this_slice_does_not_cover(flags, item, capsys):
     assert main(["train", "data", "--batch_size", "4", "--device", "cpu", *flags]) == 1
     assert item in capsys.readouterr().err
+
+
+# the geometry and distillation flags on a 13-column dataset, as the JAX
+# command line takes them: (flags, exit code, or the error raised, and what
+# it says)
+JAX_GEOMETRY_FLAGS = [
+    (["--arch", "gru", "--att_geom_tokens"], 0, None),  # the GRU context ignores the tokens
+    (["--task", "classification", "--local_agg", "edge"], 0, None),
+    (["--distill_from", "a,b"], 1, "checkpoint not found: a"),
+    (["--local_agg", "edge", "--local_agg_k", "4"], 0, None),
+    (["--geom_features"], ValueError, "re-run `ampnet preprocess --geom_features`"),
+    (["--att_geom_tokens"], ValueError, "att_geom_tokens needs the offline eigenfeature"),
+]
+
+
+@pytest.mark.parametrize("flags, outcome, says", JAX_GEOMETRY_FLAGS)
+def test_train_geometry_and_distillation_flags_behave_as_in_jax(flags, outcome, says, tmp_path,
+                                                               capsys):
+    """What the JAX ``train`` does with each flag on a dataset preprocessed
+    without the geometric columns: the GRU trains and ignores
+    ``--att_geom_tokens``, the edge block trains for both tasks, missing
+    teachers exit 1, and the geometric columns (and the tokens that read
+    them) raise JAX's ValueError."""
+    write_dataset(tmp_path)
+    argv = ["train", str(tmp_path), "--path_list_files", str(tmp_path), "--out_path",
+            str(tmp_path / "out"), "--number_of_points", "16", "--number_of_windows", "3",
+            "--batch_size", "2", "--epochs", "1", "--device", "cpu", *flags]
+    if isinstance(outcome, int):
+        assert main(argv) == outcome
+        captured = capsys.readouterr()
+        assert says is None or says in captured.err
+        if outcome == 0:
+            out = captured.out
+            assert json.loads(out[out.index("{"):out.rindex("}") + 1])["loss"] > 0
+    else:
+        with pytest.raises(outcome, match=says):
+            main(argv)
 
 
 def test_train_command_line_then_serve_its_checkpoint(tmp_path):

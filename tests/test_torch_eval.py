@@ -135,10 +135,18 @@ def test_datasets_and_feature_selection_equal_jax(cloud_dir):
                                   np.asarray(jschema.select_model_features(pc)))
     # noise classes stay in the evaluation set (the training set drops them)
     assert len(datasets.EvalCloudDataset(str(folder), names)[0]["labels"]) == SIZES[0]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        datasets.EvalCloudDataset(str(folder), names, extra_features=6)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # a 13-column cloud for a model of 6 geometric columns: JAX's ValueError
+    # when a sample is read, the same message from the feature selection
+    geom = datasets.EvalCloudDataset(str(folder), names, extra_features=6)
+    for fn in (lambda: geom[0], lambda: jdatasets.EvalCloudDataset(
+            str(folder), names, extra_features=6)[0]):
+        with pytest.raises(ValueError, match="re-run `ampnet preprocess --geom_features`"):
+            fn()
+    with pytest.raises(ValueError) as got:
         schema.select_model_features(pc, extra_features=6)
+    with pytest.raises(ValueError) as want:
+        jschema.select_model_features(pc, extra_features=6)
+    assert str(got.value) == str(want.value)
 
 
 def _assert_same_metrics(a, b, atol):

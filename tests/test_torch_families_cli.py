@@ -4,11 +4,13 @@ cross-family ``attention,gru`` ensemble against the JAX package, then each
 command path once on the CPU (``demo --arch gru`` at the verify recipe,
 ``train``/``test``/``infer``/``serve``/``export`` of the GRU, whole-cloud and
 classification checkpoints), the JAX command's refusal messages and exit
-codes, and every refusal that names ROADMAP.md Queue 1, item 4b."""
+codes, and the geometry and distillation options that the port once refused,
+built and checked as the JAX package builds and checks them."""
 
 import csv
 import json
 import os
+import pickle
 import urllib.request
 
 import jax
@@ -22,7 +24,10 @@ from ampnet_tpu.core.config import ModelConfig as JModelConfig
 from ampnet_tpu.cli.main import main as jax_main
 from ampnet_tpu.infer import tiled as jtiled
 from ampnet_tpu.models.factory import build_model as j_build_model
-from ampnet_tpu_torch.cli.main import GEOMETRY, NON_XLA, main
+from ampnet_tpu.data import schema as jschema
+from ampnet_tpu.data.datasets import CloudDataset as JCloudDataset
+from ampnet_tpu.train.step import make_step_fns as j_make_step_fns
+from ampnet_tpu_torch.cli.main import NON_XLA, main
 from ampnet_tpu_torch.core.checkpoint import load_model
 from ampnet_tpu_torch.core.config import AMPNetConfig, DataConfig, ModelConfig
 from ampnet_tpu_torch.core.weights import flax_variables, load_flax_variables, save_reference_pth
@@ -37,7 +42,6 @@ from test_torch_eval_cli import serving
 from test_torch_train import _perturbed
 
 N_POINTS = 64
-ITEM_4B = "ROADMAP.md Queue 1, item 4b (geometry and distillation)"
 DEMO = ["--epochs", "2", "--n_tiles", "3", "--points_per_window", "5000",
         "--number_of_points", "256", "--device", "cpu"]
 
@@ -264,25 +268,61 @@ def test_jax_refusals_and_exit_codes(demo, tmp_path, capsys):
     assert not (tmp_path / "b.pth").exists()
 
 
-def test_every_remaining_refusal_names_item_4b(tmp_path, capsys):
-    assert GEOMETRY == ITEM_4B
-    train = ["train", str(tmp_path), "--device", "cpu"]
-    for argv in ([*train, "--local_agg", "edge"], [*train, "--att_geom_tokens"],
-                 [*train, "--geom_features"], [*train, "--distill_from", "a"],
-                 ["preprocess", "--in_path", str(tmp_path), "--out_path", str(tmp_path / "o"),
-                  "--geom_features"],
-                 ["demo", "--out_path", str(tmp_path / "d"), "--geom_features", "--device",
-                  "cpu"]):
-        assert main(argv) == 1, argv
-        assert ITEM_4B in capsys.readouterr().err, argv
-    for make in (lambda: build_model(AMPNetConfig(model=ModelConfig(local_agg="edge"))),
-                 lambda: build_model(AMPNetConfig(model=ModelConfig(att_geom_tokens=True)),
-                                     "gru", "classification"),
-                 lambda: PreprocessParams(out_path=str(tmp_path), geom_features=True),
-                 lambda: schema.refuse_extra_features(6),
-                 lambda: CloudDataset(str(tmp_path), [], extra_features=6),
-                 lambda: make_step_fns(AMPNetConfig(), teacher=object())):
-        with pytest.raises(NotImplementedError) as refused:
-            make()
-        assert ITEM_4B in str(refused.value)
-    assert not (tmp_path / "o").exists() and not (tmp_path / "d").exists()
+def _shapes(variables):
+    """{collection/path: shape} of a Flax-layout variable tree."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                out["/".join(prefix + (k,))] = tuple(np.shape(v))
+
+    for coll in ("params", "batch_stats"):
+        walk(variables.get(coll, {}), (coll,))
+    return out
+
+
+def test_geometry_and_distillation_options_build_as_in_jax(tmp_path, capsys):
+    """What the port once refused builds and checks as JAX does: the edge
+    block and the geometry tokens give JAX's parameter tree (the classifier
+    and the GRU context ignore the tokens), the datasets read the geometric
+    columns, the schema refuses an artifact without them, ``PreprocessParams``
+    takes ``geom_features``, a teacher needs ``0 < distill_alpha <= 1``, and
+    ``train --distill_from`` exits 1 on a checkpoint that does not exist."""
+    x = jnp.zeros((1, 2, 16, 15), jnp.float32)
+    for arch, task, mkw in (("attention", "segmentation",
+                             dict(local_agg="edge", local_agg_k=4, att_geom_tokens=True)),
+                            ("gru", "classification", dict(att_geom_tokens=True)),
+                            ("attention", "classification", dict(local_agg="edge",
+                                                                 att_geom_tokens=True))):
+        data = dict(extra_features=6, max_windows=2)
+        jm = j_build_model(JConfig(data=JDataConfig(**data), model=JModelConfig(**mkw)), arch,
+                           task)
+        jv = jm.init(jax.random.PRNGKey(0), x, x[..., :2].mean(2), None)
+        port = build_model(AMPNetConfig(data=DataConfig(**data), model=ModelConfig(**mkw)),
+                           arch, task)
+        assert _shapes(flax_variables(port)) == _shapes(jv), (arch, task)
+    pc = np.random.default_rng(0).uniform(size=(50, 19)).astype(np.float32)
+    np.testing.assert_array_equal(schema.select_model_features(pc, 6),
+                                  np.asarray(jschema.select_model_features(pc, 6)))
+    with pytest.raises(ValueError, match="re-run `ampnet preprocess --geom_features`") as got:
+        schema.select_model_features(pc[:, :13], 6)
+    with pytest.raises(ValueError) as want:
+        jschema.select_model_features(pc[:, :13], 6)
+    assert str(got.value) == str(want.value)
+    with open(tmp_path / "c.pkl", "wb") as f:
+        pickle.dump(pc, f)
+    a = CloudDataset(str(tmp_path), ["c.pkl"], number_of_points=64, extra_features=6)[0]
+    b = JCloudDataset(str(tmp_path), ["c.pkl"], number_of_points=64, extra_features=6)[0]
+    assert a["points"].shape == (64, 15)
+    np.testing.assert_array_equal(a["points"], b["points"])
+    assert PreprocessParams(out_path=str(tmp_path), geom_features=True).geom_k == 24
+    for fn, cfg in ((make_step_fns, AMPNetConfig()), (j_make_step_fns, JConfig())):
+        with pytest.raises(ValueError, match=r"distillation needs 0 < distill_alpha <= 1, "
+                                             r"got 0\.0"):
+            fn(cfg, teacher=[object()])
+    assert main(["train", str(tmp_path), "--path_list_files", str(tmp_path), "--device", "cpu",
+                 "--distill_from", "a"]) == 1
+    assert "checkpoint not found: a" in capsys.readouterr().err

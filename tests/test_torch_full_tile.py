@@ -23,12 +23,15 @@ from ampnet_tpu.infer import tiled as jtiled
 from ampnet_tpu.models.amp import AMPNetSegmenter as JSegmenter
 from ampnet_tpu.ops.kmeans import num_tiles_test
 from ampnet_tpu_torch.cli.main import main
+from ampnet_tpu_torch.core.checkpoint import CheckpointManager, load_model
 from ampnet_tpu_torch.core.config import AMPNetConfig, DataConfig, ModelConfig
 from ampnet_tpu_torch.core.weights import flax_variables, save_reference_pth
 from ampnet_tpu_torch.data.las_io import LasCloud, read_las, write_las
 from ampnet_tpu_torch.infer.full_tile import SEG_TO_LAS, classify_las_file, predict_tile
 from ampnet_tpu_torch.infer.tiled import TiledInferencer
 from ampnet_tpu_torch.models.amp import AMPNetSegmenter
+from ampnet_tpu_torch.models.factory import build_model
+from ampnet_tpu_torch.train.state import create_train_state
 
 N_POINTS, MAX_CLUSTERS = 128, 4  # as tests/test_full_tile.py
 LAS_FIELDS = ("x", "y", "z", "intensity", "red", "green", "blue", "nir", "point_format")
@@ -174,17 +177,49 @@ def test_infer_las_refusals_come_before_any_work(tiles, tmp_path, capsys):
     assert not (tmp_path / "o").exists()
 
 
-def test_geometry_checkpoints_and_other_families_refused(weights, tiles, tmp_path, capsys):
-    pcfg, model, _, _ = weights
-    geom = pcfg.replace(data=DataConfig(n_points=N_POINTS, extra_features=6))
-    tt = TiledInferencer(model, pcfg, device="cpu")
-    tt.cfg = geom
-    with pytest.raises(NotImplementedError, match="item 4"):
-        predict_tile(tt, read_las(tiles[0]))
-    for flags in (["--arch", "gru", "--geom_features"], ["--geom_features"]):
-        assert main(["demo", "--out_path", str(tmp_path), "--device", "cpu", *flags]) == 1
-        assert "item 4" in capsys.readouterr().err
-    assert not os.listdir(tmp_path)
+@pytest.fixture(scope="module")
+def geom_weights():
+    """A checkpoint trained on the geometric columns (the median radius
+    normalisation, k 16): both packages' configs and the port's model."""
+    data = dict(n_points=N_POINTS, max_clusters_test=MAX_CLUSTERS, extra_features=6,
+                geom_k=16, geom_radius_norm="median")
+    pcfg = AMPNetConfig(data=DataConfig(**data), model=ModelConfig(dropout=0.0))
+    jcfg = JConfig(data=JDataConfig(**data), model=JModelConfig(dropout=0.0))
+    model = build_model(pcfg, generator=torch.Generator().manual_seed(4))
+    return pcfg, model, jcfg, flax_variables(model)
+
+
+def test_geometry_checkpoints_recompute_the_columns_as_jax(geom_weights, tiles, tmp_path):
+    """A geometry checkpoint's whole tiles: the eigenfeature columns are
+    recomputed per window with the checkpoint's geom_k and radius
+    normalisation, labels >= 0.999 of JAX's; ``infer`` on the folder writes
+    what ``classify_las_file`` writes for the restored checkpoint."""
+    pcfg, model, jcfg, variables = geom_weights
+    ref = jtiled.TiledInferencer(JSegmenter(jcfg.model), variables, jcfg)
+    port = JaxStart(TiledInferencer(model, pcfg, device="cpu"))
+    for t in tiles:
+        jp, jm = jfull.predict_tile(ref, jlas.read_las(t))
+        pp, pm = predict_tile(port, read_las(t))
+        np.testing.assert_array_equal(pp < 0, jp < 0)
+        assert _agree(pp, jp) >= 0.999 and pm["points_evaluated"] == jm["points_evaluated"]
+    ckpt = CheckpointManager(str(tmp_path / "ckpts")).save(
+        "geom", create_train_state(pcfg, model, 1, "cpu"), config_json=pcfg.to_json(),
+        number_of_points=N_POINTS)
+    folder = tmp_path / "tiles"
+    folder.mkdir()
+    for t in tiles:
+        os.symlink(t, folder / os.path.basename(t))
+    assert main(["infer", str(folder), "--model_checkpoint", ckpt, "--device", "cpu",
+                 "--backend", "fused", "--out_path", str(tmp_path / "out")]) == 0
+    cfg, restored = load_model(ckpt, "cpu")
+    assert (cfg.data.extra_features, cfg.data.geom_k, cfg.data.geom_radius_norm) == (
+        6, 16, "median")
+    direct = TiledInferencer(restored, cfg, backend="fused", device="cpu")
+    for t in tiles:
+        name = os.path.splitext(os.path.basename(t))[0]
+        classify_las_file(direct, t, str(tmp_path / "want.las"))
+        assert ((tmp_path / "out" / f"{name}_classified.las").read_bytes()
+                == (tmp_path / "want.las").read_bytes())
 
 
 def test_demo_defaults_to_the_card(monkeypatch, tmp_path):

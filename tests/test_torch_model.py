@@ -142,12 +142,18 @@ def test_backend_refusals():
                              device="cpu")
 
 
-def test_unported_model_options_raise():
-    for kw in ({"local_agg": "edge"}, {"att_geom_tokens": True},
-               {"context": "gru", "att_geom_tokens": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 4b"):
-            AMPNetSegmenter(ModelConfig(**kw))
-    AMPNetSegmenter(ModelConfig(context="gru"))  # the GRU context is ported
+def test_geometry_model_options_build_as_in_jax():
+    """The edge block builds over the 9 features; the geometry tokens need
+    the eigenfeature columns and raise JAX's ValueError without them, except
+    under the GRU context, which ignores them (no ``geom_enc``)."""
+    edge = AMPNetSegmenter(ModelConfig(local_agg="edge", local_agg_k=4)).eval()
+    assert edge(torch.zeros(1, 2, 8, 9))[0].shape == (1, 2, 8, 5)
+    with pytest.raises(ValueError, match="att_geom_tokens needs the offline eigenfeature"):
+        AMPNetSegmenter(ModelConfig(att_geom_tokens=True))
+    gru = AMPNetSegmenter(ModelConfig(context="gru", att_geom_tokens=True))
+    assert not any("geom_enc" in n for n, _ in gru.named_parameters())
+    tokens = AMPNetSegmenter(ModelConfig(att_geom_tokens=True), num_features=15)
+    assert tokens.context.geom_enc.fc1.in_features == 12
     # training mode runs (the training slice); its dropout draws only from
     # an explicit generator
     model = AMPNetSegmenter(ModelConfig()).train()

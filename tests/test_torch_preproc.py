@@ -447,8 +447,12 @@ def test_preprocess_skips_corrupt_tile(las_tiles, tmp_path, capsys):
     assert "skipped" in captured.err and "(1 unreadable tiles skipped)" in captured.out
 
 
-def test_preprocess_refuses_geom_features(tmp_path, capsys):
-    assert main(_port_preprocess_argv(tmp_path, tmp_path / "o") + ["--geom_features"]) == 1
-    assert "item 4" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 4"):
-        PreprocessParams(out_path=str(tmp_path), geom_features=True)
+def test_preprocess_refuses_geom_k_below_one(tmp_path, capsys):
+    """``--geom_k 0`` is refused before any work (the JAX command line
+    silently runs it as 24)."""
+    argv = _port_preprocess_argv(tmp_path, tmp_path / "o") + ["--geom_features", "--geom_k", "0"]
+    assert main(argv) == 1
+    assert "--geom_k must be >= 1, got 0" in capsys.readouterr().err
+    assert not (tmp_path / "o").exists()
+    with pytest.raises(ValueError, match="geom_k must be >= 1"):
+        PreprocessParams(out_path=str(tmp_path), geom_features=True, geom_k=0)

@@ -28,6 +28,7 @@ import torch
 from ampnet_tpu.core import metrics as jmetrics
 from ampnet_tpu.core.config import AMPNetConfig as JConfig
 from ampnet_tpu.core.config import ModelConfig as JModelConfig
+from ampnet_tpu.core.config import TrainConfig as JTrainConfig
 from ampnet_tpu.data import schema as jschema
 from ampnet_tpu.data.datasets import WindowedCloudDataset as JWindowedCloudDataset
 from ampnet_tpu.data.device_cache import DeviceCachedBatcher as JDeviceCachedBatcher
@@ -547,9 +548,16 @@ def test_focal_step_reports_true_ce_and_focal_loss(setup):
     assert float(m["ce_loss"]) == pytest.approx(float(m_ce["ce_loss"]), rel=1e-6)
 
 
-def test_distillation_is_refused_with_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        make_step_fns(AMPNetConfig(), teacher=object())
+@pytest.mark.parametrize("train_kw, says", [
+    (dict(distill_alpha=0.0), r"distillation needs 0 < distill_alpha <= 1, got 0\.0"),
+    (dict(distill_alpha=1.5), r"distillation needs 0 < distill_alpha <= 1, got 1\.5"),
+    (dict(distill_alpha=0.5, distill_temp=0.0), r"distill_temp must be > 0, got 0\.0"),
+])
+def test_distillation_options_are_checked_as_in_jax(train_kw, says):
+    for fn, cfg in ((make_step_fns, AMPNetConfig(train=TrainConfig(**train_kw))),
+                    (j_make_step_fns, JConfig(train=JTrainConfig(**train_kw)))):
+        with pytest.raises(ValueError, match=says):
+            fn(cfg, teacher=[])
 
 
 def test_unknown_augmentation_is_refused():
