@@ -24,8 +24,12 @@ ops       balanced k-means tiling; sampling (FPS); augmentation;
 train     losses, train state (Adam + schedule), segmentation and
           classification train/eval steps, in-step distillation, the epoch
           loop and the Trainer
-infer     tiled whole-cloud and whole-tile LAS inference, evaluation, cloud
-          classification and the HTTP server
+infer     tiled whole-cloud and whole-tile LAS inference (on one device or
+          sharded over several), evaluation, cloud classification and the
+          HTTP server
+parallel  data parallelism over processes (NCCL or gloo: global BatchNorm
+          statistics, loss normalisers and summed gradients), the
+          window-axis forward and the multi-process check
 cli       ``python -m ampnet_tpu_torch synth|preprocess|fps|train|test|infer|
           export|serve|demo``
 

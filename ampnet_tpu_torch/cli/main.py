@@ -8,14 +8,16 @@ unless ``--device cpu``. Counterparts of ``ampnet_tpu/cli/main.py``:
     fps         farthest-point subsampling of .pkl clouds (``cmd_fps``)
     train       train any ``--arch`` of the factory for ``--task`` segmentation or
                 classification (``cmd_train``): best-val checkpoints under
-                ``<out_path>/checkpoints/<arch>_<task>_best``
+                ``<out_path>/checkpoints/<arch>_<task>_best``; ``--num_devices
+                N`` trains N data-parallel ranks (NCCL, or gloo on the CPU)
     test        tiled evaluation with the IoU CSV, or the classification CSVs
                 (``cmd_test``)
     infer       label-free per-point predictions of ``.pkl`` clouds, or whole
                 ``.las`` tiles labelled into classified LAS files (``cmd_infer``)
     export      a checkpoint as a reference ``.pth`` (``cmd_export``)
-    serve       a long-lived HTTP server of per-point labels, or of one label
-                per cloud under ``--task classification`` (``cmd_serve``)
+    serve       a long-lived HTTP server of per-point labels (sharded over
+                ``--num_devices`` model replicas), or of one label per cloud
+                under ``--task classification`` (``cmd_serve``)
     demo        synth → preprocess → train → test on synthetic tiles (``cmd_demo``)
 
 ``test``, ``infer`` and ``serve`` take a reference ``.pth`` or one of the
@@ -45,7 +47,6 @@ import sys
 
 from ampnet_tpu_torch.models.backends import BACKENDS
 
-PARALLEL = "ROADMAP.md Queue 1, item 5 (parallel)"
 TRAIN_REST = "ROADMAP.md Queue 1, item 7 (training options)"
 NON_XLA = ("non-xla backends (folded/bf16/fused/int8) support the attention segmenter only; "
            "use --backend xla")
@@ -141,13 +142,29 @@ def _check_backend(groups, backend: str) -> None:
         raise Refused(NON_XLA)
 
 
-def _make_seg_inferencer(groups, args, device, max_clusters, backend: str):
+def _data_parallel_devices(num_devices: int, device: str) -> list:
+    """The devices of ``--num_devices N``: ``cuda:0`` .. ``cuda:N-1``, refused
+    when fewer cards are visible (nothing falls back to fewer devices or to
+    the CPU), or the CPU N times under ``--device cpu``."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return [device] * num_devices
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < num_devices:
+        raise Refused(f"--num_devices {num_devices} needs {num_devices} CUDA devices; "
+                      f"{have} visible")
+    return [f"cuda:{i}" for i in range(num_devices)]
+
+
+def _make_seg_inferencer(groups, args, device, max_clusters, backend: str, devices=None):
     """One TiledInferencer per group (its members stacked), wrapped in an
     EnsembleInferencer when there are several groups. The windowed families
     tile with ``max_clusters``; baseline, classic and pointnet2 evaluate the
     WHOLE cloud (the reference baseline tester feeds the full cloud at batch
     1, test_segmentation.py): one window, k = 1, replicate-padded to its
-    capacity and the duplicates dropped on output."""
+    capacity and the duplicates dropped on output. ``devices``: each
+    bucket's clouds are sharded over them (``serve --num_devices``)."""
     from ampnet_tpu_torch.infer.tiled import EnsembleInferencer, TiledInferencer
     from ampnet_tpu_torch.models.factory import WINDOWED
 
@@ -156,7 +173,8 @@ def _make_seg_inferencer(groups, args, device, max_clusters, backend: str):
             TiledInferencer(models if len(models) > 1 else models[0], cfg,
                             max_clusters=max_clusters if cfg.model.context in WINDOWED else 1,
                             backend=backend, tiler=args.tiler,
-                            transfer_dtype=args.transfer_dtype, device=device)
+                            transfer_dtype=args.transfer_dtype, device=device,
+                            devices=devices)
             for cfg, models in groups
         ]
     except ValueError as e:  # a backend that cannot run the model (make_forward's gates)
@@ -206,14 +224,17 @@ def _check_figures(args, flags) -> None:
 
 def make_server(args):
     """The InferenceServer that ``serve`` runs (not yet serving): per-point
-    labels, or under ``--task classification`` one label per cloud
-    (``CloudClassifier``)."""
+    labels, sharded over ``--num_devices`` replicas of the model, or under
+    ``--task classification`` one label per cloud (``CloudClassifier``, one
+    device: it ignores ``--num_devices``, as the JAX command does)."""
     from ampnet_tpu_torch.core.device import resolve_device
     from ampnet_tpu_torch.infer.server import InferenceServer
 
-    _refuse_unported([(args.num_devices > 1, f"--num_devices {args.num_devices}", PARALLEL)])
+    devices = None
+    if args.task != "classification" and args.num_devices > 1:
+        devices = _data_parallel_devices(args.num_devices, args.device)
     _refuse_ensemble(args, args.task)
-    device = resolve_device(args.device)
+    device = resolve_device(devices[0] if devices else args.device)
     groups, name = _restore_groups(args, device, args.task)
     if args.task == "classification":
         from ampnet_tpu_torch.infer.classify import CloudClassifier
@@ -235,7 +256,8 @@ def make_server(args):
             print("backend 'folded' is attention-only; serving with 'xla'", file=sys.stderr)
             backend = "xla"
         _check_backend(groups, backend)
-        inferencer = _make_seg_inferencer(groups, args, device, args.max_clusters, backend)
+        inferencer = _make_seg_inferencer(groups, args, device, args.max_clusters, backend,
+                                          devices)
     return InferenceServer(
         inferencer, host=args.host, port=args.port, model_name=name,
         batch_window_ms=args.batch_window_ms, max_batch_clouds=args.max_batch_clouds,
@@ -430,15 +452,16 @@ def _refuse_train_options(args) -> None:
     """Refuse the train options this port does not cover yet, and those the
     JAX command refuses for classification."""
     _refuse_unported([
-        (args.num_devices > 1, f"--num_devices {args.num_devices}", PARALLEL),
         (args.dtype != "float32", f"--dtype {args.dtype}", TRAIN_REST),
         (args.oversample_factor > 1, f"--oversample_factor {args.oversample_factor}", TRAIN_REST),
         (bool(args.seg_weighing), "--seg_weighing", TRAIN_REST),
     ])
-    if args.grad_accum < 1 or args.batch_size % args.grad_accum:
+    if args.num_devices < 1:
+        raise Refused(f"--num_devices must be >= 1, got {args.num_devices}")
+    if args.grad_accum < 1 or args.batch_size % (args.grad_accum * args.num_devices):
         raise Refused(f"--batch_size {args.batch_size} must be divisible by --grad_accum "
-                      f"{args.grad_accum} (equal micro-batches keep the accumulated gradient "
-                      "exact)")
+                      f"{args.grad_accum} x --num_devices {args.num_devices} (equal "
+                      "micro-batches and equal shares keep the accumulated gradient exact)")
     if args.task == "classification" and args.arch == "pointnet2":
         raise Refused("pointnet2 supports segmentation only")
     if args.task == "classification" and args.grad_accum > 1:
@@ -474,7 +497,45 @@ def cmd_train(args) -> int:
     ``SingleCloudBatcher``. Classification trains with ``make_cls_step_fns``
     and class weights from the train split's tower/landscape counts. With
     ``--distill_from`` the batches carry the widest column set a teacher or
-    the student reads, and the student reads its own prefix."""
+    the student reads, and the student reads its own prefix.
+
+    ``--num_devices N`` (> 1) trains N ranks, one process each (``spawn``):
+    NCCL on ``cuda:0`` .. ``cuda:N-1`` (fewer cards: exit 1), or gloo under
+    ``--device cpu``. ``--batch_size`` is the global batch; each rank takes
+    its rows of it, and the numbers are one device's on the global batch
+    (``parallel/mesh.py``). Rank 0 alone prints and writes."""
+    _refuse_train_options(args)
+    if args.num_devices == 1:
+        return _train(args)
+    from torch.multiprocessing import ProcessExitedException, ProcessRaisedException
+
+    from ampnet_tpu_torch.parallel.mesh import spawn_ranks
+
+    devices = _data_parallel_devices(args.num_devices, args.device)
+    try:
+        spawn_ranks(_train_rank, args.num_devices,
+                    device="cuda" if devices[0].startswith("cuda") else args.device,
+                    args=(args,))
+    except (ProcessExitedException, ProcessRaisedException) as e:
+        print(f"a training rank failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _train_rank(dp, args) -> None:
+    """One rank of ``train --num_devices``; a refusal or a non-zero exit
+    ends the rank with that code."""
+    try:
+        rc = _train(args, dp)
+    except Refused as e:
+        print(e, file=sys.stderr)
+        rc = 1
+    if rc:
+        raise SystemExit(rc)
+
+
+def _train(args, dp=None) -> int:
+    """``train`` in this process: the whole run, or rank ``dp.rank``'s part."""
     import numpy as np
     import torch
 
@@ -490,8 +551,7 @@ def cmd_train(args) -> int:
     from ampnet_tpu_torch.train.cls_step import make_cls_step_fns
     from ampnet_tpu_torch.train.trainer import Trainer
 
-    _refuse_train_options(args)
-    device = resolve_device(args.device)
+    device = dp.device if dp is not None else resolve_device(args.device)
     cfg = AMPNetConfig(
         data=DataConfig(n_points=args.number_of_points, max_windows=args.number_of_windows,
                         extra_features=N_GEOM_FEATURES if args.geom_features else 0,
@@ -537,8 +597,9 @@ def cmd_train(args) -> int:
     def batcher(ds, seed):
         if ds is None:
             return None
+        # short batches pad to whole micro-batches of equal rank shares
         kw = dict(seed=seed, drop_last=len(ds) >= args.batch_size,
-                  pad_to_multiple=args.grad_accum)
+                  pad_to_multiple=args.grad_accum * args.num_devices)
         b = (PaddedBatcher(ds, args.batch_size, n_points=args.number_of_points,
                            max_windows=args.number_of_windows, **kw) if windowed
              else SingleCloudBatcher(ds, args.batch_size, n_points=args.number_of_points, **kw))
@@ -554,11 +615,11 @@ def cmd_train(args) -> int:
         # know them from the file names; 1 each otherwise, as in JAX)
         counts = [getattr(train_ds, "len_landscape", 1), getattr(train_ds, "len_towers", 1)]
         step_fns = make_cls_step_fns(cfg, get_class_weights(
-            args.weighing_method, [max(c, 1) for c in counts], beta=cfg.train.beta))
+            args.weighing_method, [max(c, 1) for c in counts], beta=cfg.train.beta), dp=dp)
     trainer = Trainer(cfg, model, batcher(train_ds, cfg.train.seed),
                       batcher(val_ds, cfg.train.seed + 1), args.out_path,
                       name=f"{args.arch}_{args.task}", task=args.task, device=device,
-                      step_fns=step_fns, teacher=teacher)
+                      step_fns=step_fns, teacher=teacher, dp=dp)
     try:
         if args.model_checkpoint and not trainer.resume(args.model_checkpoint):
             print(f"no checkpoint {args.model_checkpoint!r} under {trainer.ckpt.directory}",
@@ -567,9 +628,10 @@ def cmd_train(args) -> int:
         history = trainer.fit(args.epochs)
     finally:
         trainer.close()
-    last = history["val"][-1] if history["val"] else history["train"][-1]
-    print(json.dumps({k: v for k, v in last.items() if np.isfinite(v)}, indent=2))
-    print(f"checkpoints + logs in {args.out_path}")
+    if trainer.writer:
+        last = history["val"][-1] if history["val"] else history["train"][-1]
+        print(json.dumps({k: v for k, v in last.items() if np.isfinite(v)}, indent=2))
+        print(f"checkpoints + logs in {args.out_path}")
     return 0
 
 
@@ -924,8 +986,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(1-a)*CE + a*KL")
     s.add_argument("--distill_temp", type=float, default=2.0,
                    help="distillation softmax temperature (> 0)")
+    s.add_argument("--num_devices", type=int, default=1,
+                   help="data-parallel ranks, one process each: NCCL on cuda:0..N-1, or "
+                        "gloo with --device cpu; --batch_size is the global batch")
     # the JAX command line's other options: refused unless at their defaults
-    s.add_argument("--num_devices", type=int, default=1)
     s.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     s.add_argument("--oversample_factor", type=int, default=1)
     s.add_argument("--seg_weighing", default="")
@@ -981,7 +1045,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default="segmentation",
                    help="segmentation: per-point labels; classification: one "
                         "tower/no-tower label (+ probabilities) per cloud")
-    s.add_argument("--num_devices", type=int, default=1, help="1 for now")
+    s.add_argument("--num_devices", type=int, default=1,
+                   help="shard each bucket's clouds over replicas of the model on "
+                        "cuda:0..N-1 (or the CPU N times with --device cpu)")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8421)
     s.add_argument("--max_clusters", type=int, default=None,

@@ -9,6 +9,9 @@ card. The port's counterpart of ``ampnet_tpu/data/device_cache.py``.
 * A step then gathers its batch on the card from a ``[B]`` index row; the
   epoch's ``[S, B]`` index matrix takes the host batcher's order
   (``default_rng(seed + epoch)``) and goes up once per epoch.
+* Under a process group the cache is replicated on every rank's device, as
+  the JAX cache is over the mesh, and each rank takes its columns of the
+  index matrix (``epoch_index_matrix``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ampnet_tpu_torch.data.pipeline import HostShardedBatcher
+from ampnet_tpu_torch.parallel.mesh import rank_rows
 
 # a dataset larger than this stays on the host path under --device_cache auto
 DEFAULT_LIMIT_BYTES = 4 * 1024**3
@@ -63,6 +69,10 @@ class DeviceCachedBatcher:
     from a cache on ``device``."""
 
     def __init__(self, inner, device, limit_bytes: int = DEFAULT_LIMIT_BYTES):
+        if isinstance(inner, HostShardedBatcher):
+            # each host sees only its slice: caching it would change the
+            # epoch distribution (the JAX cache refuses it as well)
+            raise ValueError("DeviceCachedBatcher does not support HostShardedBatcher")
         self.inner = inner
         self.device = torch.device(device)
         self.batch_size = inner.batch_size
@@ -127,15 +137,23 @@ class DeviceCachedBatcher:
             out.append((idx.astype(np.int64), pad, names))
         return out
 
-    def epoch_index_matrix(self):
-        """Rectangular ``(idxs [S, B], pads [S, B], names)`` for one epoch."""
+    def epoch_index_matrix(self, dp=None, grad_accum: int = 1):
+        """Rectangular ``(idxs [S, B], pads [S, B], names)`` for one epoch.
+        Under a process group ``dp`` (the cache is replicated on every rank,
+        each rank drawing the same epoch) the rank's columns of it: its rows
+        of every global batch (``parallel/mesh.py::rank_rows``)."""
         m = max(self.pad_to_multiple, 1)
-        batches = self._epoch_indices(pad_to=-(-self.batch_size // m) * m)
+        width = -(-self.batch_size // m) * m
+        batches = self._epoch_indices(pad_to=width)
         if not batches:
-            return (np.zeros((0, self.batch_size), np.int64),
-                    np.zeros((0, self.batch_size), bool), [])
-        return (np.stack([b[0] for b in batches]), np.stack([b[1] for b in batches]),
-                [b[2] for b in batches])
+            return (np.zeros((0, width), np.int64), np.zeros((0, width), bool), [])
+        idxs, pads = np.stack([b[0] for b in batches]), np.stack([b[1] for b in batches])
+        names = [b[2] for b in batches]
+        if dp is not None:
+            cols = rank_rows(width, dp.world, dp.rank, grad_accum)
+            idxs, pads = idxs[:, cols], pads[:, cols]
+            names = [[row[c] for c in cols] for row in names]
+        return idxs, pads, names
 
     def __iter__(self) -> Iterator[Dict]:
         for idx, pad, names in self._epoch_indices():
@@ -149,8 +167,8 @@ def maybe_device_cache(batcher, device, mode: str = "auto",
                        limit_bytes: int = DEFAULT_LIMIT_BYTES):
     """CLI policy: 'on' caches (raises if too big), 'off' returns the host
     batcher, 'auto' caches when the padded dataset fits under ``limit_bytes``."""
-    if mode == "off" or batcher is None:
-        return batcher
+    if mode == "off" or batcher is None or isinstance(batcher, HostShardedBatcher):
+        return batcher  # multi-host input stays on the host pipeline
     if mode not in ("on", "auto"):
         raise ValueError(f"device_cache mode {mode!r} (want on/off/auto)")
     if mode == "auto":

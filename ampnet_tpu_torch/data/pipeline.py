@@ -1,6 +1,7 @@
 """Host input pipeline: padded static-shape batches, the port's own copy of
 ``ampnet_tpu/data/pipeline.py`` (``pad_windowed_sample``, ``PaddedBatcher``,
-``SingleCloudBatcher``, ``to_device_batch``). Contract of every batch::
+``SingleCloudBatcher``, ``HostShardedBatcher``, ``global_device_batch``,
+``pad_to_multiple``, ``to_device_batch``). Contract of every batch::
 
     points     [B, W, N, F] float32  — windows replicate-padded to W=max_windows
     labels     [B, W, N]    int32    — padded windows are all −1 (loss-ignored)
@@ -16,10 +17,11 @@ cache (data/device_cache.py), which builds each sample once.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def pad_windowed_sample(
@@ -50,6 +52,24 @@ def pad_windowed_sample(
         cent = np.concatenate([cent, np.repeat(cent[-1:], reps, axis=0)], axis=0)
         lbl = np.concatenate([lbl, np.full((reps, n_points), -1, lbl.dtype)], axis=0)
     return dict(sample, points=pts, labels=lbl, centroids=cent)
+
+
+def pad_to_multiple(batch: Dict, multiple: int) -> Dict:
+    """Pad a short host batch up to a multiple of ``multiple`` clouds by
+    replicating earlier samples with all labels −1 (loss-ignored), so the
+    ranks and micro-batches split it evenly."""
+    b = batch["points"].shape[0]
+    if multiple <= 1 or b % multiple == 0:
+        return batch
+    idx = np.arange(multiple - b % multiple) % b
+    out = dict(batch)
+    for k in ("points", "centroids"):
+        out[k] = np.concatenate([batch[k], batch[k][idx]], axis=0)
+    for k in ("labels", "cls_label"):  # padded clouds carry no loss or metric weight
+        if k in batch:
+            out[k] = np.concatenate([batch[k], np.full_like(batch[k][idx], -1)])
+    out["names"] = batch["names"] + [f"<pad:{batch['names'][i]}>" for i in idx]
+    return out
 
 
 class PaddedBatcher:
@@ -84,31 +104,19 @@ class PaddedBatcher:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _pad_batch_to_multiple(self, batch):
-        """Pad a short batch up to a multiple of ``pad_to_multiple`` clouds by
-        replicating earlier samples with all labels −1 (loss-ignored)."""
-        m = self.pad_to_multiple
-        b = batch["points"].shape[0]
-        if m <= 1 or b % m == 0:
-            return batch
-        idx = np.arange(m - b % m) % b
-        out = dict(batch)
-        for k in ("points", "centroids"):
-            out[k] = np.concatenate([batch[k], batch[k][idx]], axis=0)
-        for k in ("labels", "cls_label"):  # padded clouds carry no loss or metric weight
-            if k in batch:
-                out[k] = np.concatenate([batch[k], np.full_like(batch[k][idx], -1)])
-        out["names"] = batch["names"] + [f"<pad:{batch['names'][i]}>" for i in idx]
-        return out
+    def _epoch_order(self, rng: np.random.Generator) -> np.ndarray:
+        """Sample order for one epoch; ``HostShardedBatcher`` takes its slice."""
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            rng.shuffle(order)
+        return order
 
     def _windowed(self, sample: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """A dataset sample in the windowed ``[W, N, F]`` layout."""
         return sample
 
     def _make_batches(self, rng: np.random.Generator) -> Iterator[Dict]:
-        order = np.arange(len(self.dataset))
-        if self.shuffle:
-            rng.shuffle(order)
+        order = self._epoch_order(rng)
         for b in range(len(self)):
             idxs = order[b * self.batch_size: (b + 1) * self.batch_size]
             samples = [pad_windowed_sample(self._windowed(self.dataset[int(i)]), self.n_points,
@@ -121,7 +129,7 @@ class PaddedBatcher:
             }
             if "cls_label" in samples[0]:
                 batch["cls_label"] = np.asarray([s["cls_label"] for s in samples])
-            yield self._pad_batch_to_multiple(batch)
+            yield pad_to_multiple(batch, self.pad_to_multiple)
 
     def __iter__(self) -> Iterator[Dict]:
         rng = np.random.default_rng(self.seed + self.epoch)
@@ -140,6 +148,52 @@ class SingleCloudBatcher(PaddedBatcher):
     def _windowed(self, sample):
         pts, lbl = sample["points"][None], sample["labels"][None]  # [1, N, F], [1, N]
         return dict(sample, points=pts, labels=lbl, centroids=pts[:, :, :2].mean(axis=1))
+
+
+class HostShardedBatcher(PaddedBatcher):
+    """Per-host shard loading for multi-process training (JAX
+    ``data/pipeline.py::HostShardedBatcher``): every host draws the SAME
+    seeded global epoch permutation, then loads only its ``1 / host_count``
+    contiguous block of each global batch, so the union of the hosts' batches
+    is the single-host epoch. Each host resamples its own clouds from the
+    epoch's generator in its own order, as the JAX batcher does.
+    ``host_id`` / ``host_count`` default to the process group's rank and
+    world size (0 / 1 without a group). Host h's block is what
+    ``parallel/mesh.py::rank_rows`` gives rank h at ``grad_accum`` 1."""
+
+    def __init__(self, dataset, global_batch_size: int, host_id: Optional[int] = None,
+                 host_count: Optional[int] = None, **kw):
+        group = dist.is_initialized()
+        if host_id is None:
+            host_id = dist.get_rank() if group else 0
+        if host_count is None:
+            host_count = dist.get_world_size() if group else 1
+        if global_batch_size % host_count:
+            raise ValueError(f"global_batch_size {global_batch_size} not divisible by "
+                             f"host_count {host_count}")
+        if kw.get("drop_last") is False:
+            # a partial global batch cannot be split evenly across hosts
+            raise ValueError("HostShardedBatcher requires drop_last=True")
+        self.host_id = host_id
+        self.host_count = host_count
+        self.global_batch_size = global_batch_size
+        super().__init__(dataset, global_batch_size // host_count, **kw)
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.global_batch_size
+
+    def _epoch_order(self, rng: np.random.Generator) -> np.ndarray:
+        order = super()._epoch_order(rng)
+        n = len(self) * self.global_batch_size
+        order = order[:n].reshape(-1, self.host_count, self.batch_size)
+        return order[:, self.host_id].reshape(-1)
+
+
+def global_device_batch(local_batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """This host's ``HostShardedBatcher`` slice as tensors on the rank's
+    ``device``: the rows the sharded step takes (the JAX function assembles
+    the hosts' slices into one global array instead)."""
+    return to_device_batch(local_batch, device)
 
 
 def to_device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:

@@ -31,7 +31,9 @@ Endpoints (stdlib http.server; no third-party deps):
     ``normalize_xy_neg_one``) server-side for raw 13-column-derived features.
 
 Run: ``python -m ampnet_tpu_torch serve --model_checkpoint x.pth [--port 8421]
-[--backend fused] [--device cuda]``.
+[--backend fused] [--device cuda] [--num_devices N]``; with ``--num_devices``
+the inferencer shards each bucket's clouds over N model replicas
+(``infer/tiled.py``); the server is the same for one device or several.
 """
 
 from __future__ import annotations

@@ -42,11 +42,19 @@ gives baseline, classic and PointNet++ ``max_clusters=1``, so a whole cloud is
 one window (k = 1) of capacity ``n_points · 2^j``, as the JAX command does
 (``ampnet_tpu/cli/main.py:589-611``).
 
-Not ported yet: the mesh (``--num_devices``, ROADMAP.md Queue 1, item 5).
+Several devices (``devices=[...]``, ``serve --num_devices``): the model,
+with its folded and prepared chains, is placed once on each distinct device,
+each bucket's batch is padded (copies of its first cloud) to a multiple of
+the device count, and its contiguous shards run on their devices, each shard
+one bucket forward; ``fetch_many`` joins them. One process drives the list,
+as the JAX mesh's single controller does; clouds are independent, so no
+collective is needed. A shard's labels equal ``predict_many`` on one device
+over the same clouds and seeds.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Dict, List, Optional
@@ -117,6 +125,13 @@ def tta_ensemble(predict_probs, clouds, transforms: int, seeds=None,
     return results
 
 
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as the current card's ``cuda:<i>``; other devices as they are."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class TiledInferencer:
     def __init__(
         self,
@@ -129,8 +144,13 @@ class TiledInferencer:
         max_points_per_call: int = 2_000_000,
         transfer_dtype: Optional[str] = None,
         device="cuda",
+        devices=None,
     ):
-        self.device = resolve_device(device)
+        # the devices the bucket batches shard over (``device`` alone by
+        # default), each with its index: a bucket finds its forwards by the
+        # device its points are on
+        self.devices = [_indexed(resolve_device(d)) for d in (devices or [device])]
+        self.device = self.devices[0]
         # checkpoint ensemble: a list of same-signature models, each folded
         # and prepared once; _run_bucket averages their softmax on the device
         models = list(model) if isinstance(model, (list, tuple)) else [model]
@@ -166,7 +186,11 @@ class TiledInferencer:
         # (first-use kernel build, allocator growth, library plans)
         self._warm_shapes: set = set()
         self._cold_count: int = 0
-        self._forwards = [make_forward(m, cfg, backend, device=self.device) for m in models]
+        # each distinct device holds its own copy of the members, prepared once
+        self._forwards_on = {}
+        for i, dev in enumerate(dict.fromkeys(self.devices)):
+            placed = models if i == 0 else [copy.deepcopy(m) for m in models]
+            self._forwards_on[dev] = [make_forward(m, cfg, backend, device=dev) for m in placed]
 
     def _mark_program(self, k: int, cap: int, probs: bool, b: int) -> bool:
         key = (k, cap, bool(probs), int(b))
@@ -190,18 +214,18 @@ class TiledInferencer:
             cap *= 2
         return cap
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
+    def _upload(self, a: np.ndarray, device: torch.device) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
+        if device.type == "cuda":
             # pinned + non_blocking: a pageable upload would wait for the stream
-            t = t.pin_memory().to(self.device, non_blocking=True)
+            t = t.pin_memory().to(device, non_blocking=True)
         return t
 
     def _run_bucket(self, k: int, cap: int, probs: bool, points, scale, offset, init):
         """One bucket program: ``points`` [B, k*cap, F] in the wire dtype on
-        the device, ``init`` [B, k] k-means init indices (None for k = 1) →
-        (labels [B, n] int8, probs [B, n, C] float16 or None) in each
-        cloud's original point order."""
+        one of the devices, ``init`` [B, k] k-means init indices (None for
+        k = 1) → (labels [B, n] int8, probs [B, n, C] float16 or None) in
+        each cloud's original point order."""
         b, n, f = points.shape
         int8_wire = self.transfer_dtype == np.dtype(np.int8)
 
@@ -227,14 +251,15 @@ class TiledInferencer:
             order = torch.arange(n, device=points.device).expand(b, n)
         windows = to_f32(points, scale, offset).reshape(b, k, cap, f)
         centroids = windows[..., :2].mean(dim=2)  # [B, k, 2]
+        forwards = self._forwards_on[points.device]
         if self.ensemble == 1:
-            logits = self._forwards[0](windows, centroids, None)
+            logits = forwards[0](windows, centroids, None)
             preds = logits.argmax(dim=-1)
             p = torch.softmax(logits, dim=-1) if probs else None
         else:
             # mean of the members' fp32 softmax; labels are its argmax
             p = torch.stack([torch.softmax(fwd(windows, centroids, None).float(), dim=-1)
-                             for fwd in self._forwards]).mean(dim=0)
+                             for fwd in forwards]).mean(dim=0)
             preds = p.argmax(dim=-1)
         # int8 labels (num_classes ≤ 127) quarter the result traffic
         preds = preds.reshape(b, n).to(torch.int8)
@@ -245,13 +270,14 @@ class TiledInferencer:
         pflat = torch.zeros_like(p).scatter_(1, order[..., None].expand_as(p), p)
         return flat, pflat
 
-    def _init_idx(self, n: int, k: int, seed: int, given) -> torch.Tensor:
-        """A cloud's [k] k-means init indices: ``given`` when not None, else
-        the first k of a permutation from a generator seeded by ``seed``."""
+    def _init_idx(self, n: int, k: int, seed: int, given, device) -> torch.Tensor:
+        """A cloud's [k] k-means init indices on ``device``: ``given`` when not
+        None, else the first k of a permutation from a generator seeded by
+        ``seed``."""
         if given is not None:
-            return self._upload(np.asarray(given, np.int64))
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        return torch.randperm(n, generator=gen, device=self.device)[:k]
+            return self._upload(np.asarray(given, np.int64), device)
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        return torch.randperm(n, generator=gen, device=device)[:k]
 
     def _encode_batch(self, rows: np.ndarray):
         """Wire-encode a [B, N, F] cloud batch → (encoded, scales, offsets).
@@ -337,28 +363,38 @@ class TiledInferencer:
             buckets.setdefault((k, cap), []).append(i)
 
         calls = []
+        nd = len(self.devices)
         for (k, cap), idxs in buckets.items():
             rows = np.stack([prepped[i][0] for i in idxs])
-            self._mark_program(k, cap, return_probs, len(idxs))
-            calls.append((k, cap, idxs, rows))
+            # a multiple of the device count, padded with copies of the first
+            # cloud (seed 0), whose labels are dropped; contiguous shards
+            per = -(-len(idxs) // nd)
+            if per * nd > len(idxs):
+                rows = np.concatenate([rows, np.repeat(rows[:1], per * nd - len(idxs), axis=0)])
+            self._mark_program(k, cap, return_probs, per)
+            for d, dev in enumerate(self.devices):
+                calls.append((k, cap, idxs[d * per:(d + 1) * per], rows[d * per:(d + 1) * per],
+                              dev))
 
         def launch(call):
-            k, cap, idxs, rows = call
+            k, cap, idxs, rows, dev = call
             enc, scales, offsets = self._encode_batch(rows)
-            pts, sc, off = self._upload(enc), self._upload(scales), self._upload(offsets)
+            pts, sc, off = (self._upload(a, dev) for a in (enc, scales, offsets))
             # grad mode is per thread: each launching thread sets its own
             with torch.inference_mode():
                 init = None if k == 1 else torch.stack([
-                    self._init_idx(k * cap, k, seeds[i], None if init_idx is None else init_idx[i])
-                    for i in idxs])
+                    self._init_idx(k * cap, k, seeds[i],
+                                   None if init_idx is None else init_idx[i], dev)
+                    for i in idxs] + [self._init_idx(k * cap, k, 0, None, dev)]
+                    * (len(rows) - len(idxs)))
                 flat, pflat = self._run_bucket(k, cap, return_probs, pts, sc, off, init)
-            if self.device.type != "cuda":
+            if dev.type != "cuda":
                 return flat, pflat, None
             # results land in pinned host memory; the event marks the copy done
             host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
                     if t is not None else None for t in (flat, pflat)]
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+            event.record(torch.cuda.current_stream(dev))
             return host[0], host[1], event
 
         if len(calls) > 1:

@@ -21,6 +21,9 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ampnet_tpu_torch.parallel.mesh import all_reduce_sum
+
+
 def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
     """``generator``, or one seeded 0: a model's init draws from it."""
     return generator if generator is not None else torch.Generator().manual_seed(0)
@@ -78,7 +81,14 @@ class MaskedBatchNorm(nn.Module):
     here is torch's 0.1). ``nn.BatchNorm1d`` is not used: its running variance
     is unbiased. In eval it normalizes with the running statistics.
     ``norm_mode='window'`` uses per-sample statistics over the point axis in
-    both modes and keeps no running statistics, as the JAX module does."""
+    both modes and keeps no running statistics, as the JAX module does.
+
+    Under a process group (``dp``, set by ``parallel/mesh.py::sync_batch_norm``)
+    the training statistics are the global batch's: Σx, Σx² and the mask
+    count are summed over the ranks, differentiably, before the mean and
+    variance are formed (without a mask the count is the rows times the
+    ranks: every rank holds as many rows). Without a group, and at one rank,
+    the same sums divide in the same order."""
 
     def __init__(self, features: int, eps: float = 1e-5, norm_mode: str = "batch",
                  momentum: float = 0.9):
@@ -86,6 +96,7 @@ class MaskedBatchNorm(nn.Module):
         self.eps = eps
         self.norm_mode = norm_mode
         self.momentum = momentum
+        self.dp = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -105,14 +116,23 @@ class MaskedBatchNorm(nn.Module):
         elif self.training:
             xf = at_least_float32(x)
             dims = tuple(range(x.dim() - 1))
+            c = x.shape[-1]
             if mask is None:
-                mean = xf.mean(dim=dims)
-                var = xf.square().mean(dim=dims) - mean.square()
+                s1, s2 = xf.sum(dim=dims), xf.square().sum(dim=dims)
+                denom = float(x.numel() // c)
+                if self.dp is not None:
+                    s1, s2 = all_reduce_sum(torch.cat([s1, s2]), self.dp).split(c)
+                    denom *= self.dp.world
             else:
-                m = mask.float()[..., None]
-                denom = m.sum(dim=dims).clamp_min(1.0)
-                mean = (xf * m).sum(dim=dims) / denom
-                var = (xf.square() * m).sum(dim=dims) / denom - mean.square()
+                m = mask.to(xf.dtype)[..., None]
+                s1, s2 = (xf * m).sum(dim=dims), (xf.square() * m).sum(dim=dims)
+                count = m.sum(dim=dims)
+                if self.dp is not None:
+                    s1, s2, count = all_reduce_sum(torch.cat([s1, s2, count]),
+                                                   self.dp).split([c, c, 1])
+                denom = count.clamp_min(1.0)
+            mean = s1 / denom
+            var = s2 / denom - mean.square()
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)

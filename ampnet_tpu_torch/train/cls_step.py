@@ -23,16 +23,26 @@ import torch
 from ampnet_tpu_torch.core.config import AMPNetConfig
 from ampnet_tpu_torch.core.metrics import confusion_matrix
 from ampnet_tpu_torch.ops.augment import rotate_z
-from ampnet_tpu_torch.train.losses import orthogonality_regularizer, weighted_cross_entropy
-from ampnet_tpu_torch.train.step import Batch, _forward
+from ampnet_tpu_torch.parallel.mesh import all_reduce_grads, sync_batch_norm
+from ampnet_tpu_torch.train.losses import (
+    orthogonality_regularizer,
+    weighted_cross_entropy,
+    weighted_cross_entropy_parts,
+)
+from ampnet_tpu_torch.train.step import Batch, _forward, global_mean
 
 
 def make_cls_step_fns(cfg: AMPNetConfig, class_weights: Optional[np.ndarray] = None,
-                      num_out: int = 2, augment: bool = True) -> Tuple[Callable, Callable]:
+                      num_out: int = 2, augment: bool = True,
+                      dp=None) -> Tuple[Callable, Callable]:
     """``(train_step, eval_step)`` with the signatures of
     ``train/step.py::make_step_fns``; ``eval_step``'s metrics add
-    ``pos_prob`` [B], the positive class's softmax probability."""
+    ``pos_prob`` [B], the positive class's softmax probability (the rank's
+    rows under a process group ``dp``). Under ``dp`` the CE weight sum over
+    clouds, the regulariser, every BatchNorm and the gradients are the global
+    batch's, as in ``make_step_fns``."""
     reg_w = cfg.train.reg_weight
+    world = 1 if dp is None else dp.world
     weights_by_device: Dict[torch.device, Optional[torch.Tensor]] = {}
 
     def weights_on(device):
@@ -46,17 +56,28 @@ def make_cls_step_fns(cfg: AMPNetConfig, class_weights: Optional[np.ndarray] = N
         model = state.model
         model.train()
         cw = weights_on(state.device)
-        gen = state.step_generator()
+        gen = state.step_generator(None if dp is None else dp.rank)
         aug = dict(batch, points=rotate_z(batch["points"], gen)) if augment else batch
         state.optimizer.zero_grad(set_to_none=True)
-        logits, t_feat, _ = _forward(model, aug, gen)
-        ce = weighted_cross_entropy(logits, aug["cls_label"], cw)
-        loss = ce + reg_w * orthogonality_regularizer(t_feat)
-        loss.backward()
-        state.apply_gradients()
+        with sync_batch_norm(model, dp):
+            logits, t_feat, _ = _forward(model, aug, gen)
+            if dp is None:
+                ce = weighted_cross_entropy(logits, aug["cls_label"], cw)
+            else:  # the rank's share of the global batch's CE
+                num, den = weighted_cross_entropy_parts(logits, aug["cls_label"], cw)
+                ce = num / dp.sum(den).clamp_min(1e-12)
+            # the same global norm on every rank: each carries 1/world of it
+            loss = ce + reg_w * orthogonality_regularizer(t_feat, dp) / world
+            loss.backward()
         preds = logits.detach().argmax(-1)
-        return {"loss": loss.detach(), "ce_loss": ce.detach(),
-                "confusion": confusion_matrix(preds, batch["cls_label"], num_out)}
+        loss, ce = loss.detach(), ce.detach()
+        cm = confusion_matrix(preds, batch["cls_label"], num_out)
+        if dp is not None:
+            all_reduce_grads(model, dp)
+            loss, ce = dp.sum(torch.stack([loss, ce])).unbind()
+            cm = dp.sum(cm)
+        state.apply_gradients()
+        return {"loss": loss, "ce_loss": ce, "confusion": cm}
 
     def eval_step(state, batch: Batch):
         model = state.model
@@ -67,10 +88,11 @@ def make_cls_step_fns(cfg: AMPNetConfig, class_weights: Optional[np.ndarray] = N
                 logits, _, _ = _forward(model, batch, None)
         finally:
             model.train(was_training)
-        ce = weighted_cross_entropy(logits, batch["cls_label"], weights_on(state.device))
+        ce = global_mean(weighted_cross_entropy_parts(logits, batch["cls_label"],
+                                                      weights_on(state.device)), dp)
         preds = logits.argmax(-1)
-        return {"loss": ce, "ce_loss": ce,
-                "confusion": confusion_matrix(preds, batch["cls_label"], num_out),
+        cm = confusion_matrix(preds, batch["cls_label"], num_out)
+        return {"loss": ce, "ce_loss": ce, "confusion": cm if dp is None else dp.sum(cm),
                 # positive-class probability for PR curves (test_classification.py AUC)
                 "pos_prob": torch.softmax(logits.float(), dim=-1)[..., 1]}, preds
 

@@ -12,7 +12,10 @@ GRU) are summed with them, and the sum is divided by the member count. The
 encoders are per-point MLPs and pooling, so a teacher accepts the student's
 (W, N) geometry whatever its own training geometry was. Teachers run their
 plain modules in eval mode, as the JAX package runs ``model.apply(train=
-False)``: never a fused backend, which would change the numbers.
+False)``: never a fused backend, which would change the numbers. Under a
+process group each rank's teachers run on the rank's own rows, and the step
+divides the KL numerators by the global count of valid points
+(``train/step.py``), as the JAX sharded step runs its teachers per shard.
 """
 
 from __future__ import annotations

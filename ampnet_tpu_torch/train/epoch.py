@@ -8,7 +8,10 @@ its index row and queues its kernels; every step's metrics stay on the card
 and are stacked, so the caller fetches them ONCE per epoch. Nothing in the
 loop reads a value back to the host. The step's generator derives from
 ``(seed, step)``, so a seeded run draws exactly what the per-step path draws.
-(Capturing the step in a CUDA graph is a later optimisation.)
+(Capturing the step in a CUDA graph is a later optimisation.) Under a
+process group each rank runs the epoch over its own columns of the index
+matrix (``DeviceCachedBatcher.epoch_index_matrix(dp, grad_accum)``) with the
+sharded steps, as the JAX epoch shards the matrix along its batch column.
 """
 
 from __future__ import annotations

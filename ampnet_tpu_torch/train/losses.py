@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ampnet_tpu_torch.models.layers import at_least_float32
+from ampnet_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def _as_weights(class_weights, device) -> Optional[torch.Tensor]:
@@ -107,10 +108,12 @@ def distillation_kl(student_logits, teacher_probs, targets, temperature: float =
     return num / den.clamp_min(1.0)
 
 
-def orthogonality_regularizer(transforms: torch.Tensor) -> torch.Tensor:
+def orthogonality_regularizer(transforms: torch.Tensor, dp=None) -> torch.Tensor:
     """Frobenius norm of (I − A·Aᵀ) over a stack of ``[..., D, D]`` matrices —
-    one number, like torch.norm over the whole batch (…:463-464)."""
+    one number, like torch.norm over the whole batch (…:463-464). Under a
+    process group ``dp`` the sum of squares is the global batch's (summed
+    over the ranks, differentiably), so every rank reads the same norm."""
     d = transforms.shape[-1]
     a = at_least_float32(transforms.reshape(-1, d, d))
     diff = torch.eye(d, dtype=a.dtype, device=a.device) - a @ a.transpose(1, 2)
-    return torch.sqrt(diff.square().sum() + 1e-12)
+    return torch.sqrt(all_reduce_sum(diff.square().sum(), dp) + 1e-12)

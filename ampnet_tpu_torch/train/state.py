@@ -20,12 +20,13 @@ over all parameters is the same optimizer, as in the JAX package.
 * **Generator.** Step ``s`` draws its augmentation and dropout from a
   ``torch.Generator`` seeded from ``(seed, s)``, as the JAX step folds the
   step into its key, so a per-step loop and an epoch loop draw the same.
+  Under a process group each rank draws from ``(seed, s, rank)``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,9 +90,11 @@ class TrainState:
         """The learning rate the next update takes, lr_scale included."""
         return self.schedule(self.step) * self.lr_scale
 
-    def step_generator(self) -> torch.Generator:
-        """This step's generator, seeded from (seed, step) alone."""
-        seed = np.random.SeedSequence((self.seed, self.step)).generate_state(1, np.uint64)[0]
+    def step_generator(self, rank: Optional[int] = None) -> torch.Generator:
+        """This step's generator, seeded from (seed, step) alone; a rank of a
+        process group draws for its own rows from (seed, step, rank)."""
+        entropy = (self.seed, self.step) if rank is None else (self.seed, self.step, rank)
+        seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def apply_gradients(self) -> None:

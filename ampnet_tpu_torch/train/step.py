@@ -48,6 +48,7 @@ from ampnet_tpu_torch.ops.augment import (
     rotate_z,
     shuffle_windows,
 )
+from ampnet_tpu_torch.parallel.mesh import all_reduce_grads, sync_batch_norm
 from ampnet_tpu_torch.train.losses import (
     cross_entropy_weight_sum,
     distillation_kl,
@@ -113,11 +114,21 @@ def _forward(model, batch: Batch, generator: Optional[torch.Generator],
                  generator=generator)
 
 
+def global_mean(parts, dp=None) -> torch.Tensor:
+    """A loss from its (numerator, denominator) parts, both summed over the
+    ranks under a process group ``dp`` (no gradient there: metrics only)."""
+    num, den = parts
+    if dp is not None:
+        num, den = dp.sum(torch.stack([num, den])).unbind()
+    return num / den.clamp_min(1e-12)
+
+
 def make_step_fns(
     cfg: AMPNetConfig,
     augment: bool = True,
     grad_accum: int = 0,  # 0 → cfg.train.grad_accum
     teacher=None,
+    dp=None,
 ) -> Tuple[Callable, Callable]:
     """``(train_step, eval_step)`` over the config.
 
@@ -126,7 +137,14 @@ def make_step_fns(
     ``eval_step(state, batch) -> (metrics, preds)`` runs the model in eval mode
     and leaves it in the mode it found it in. ``teacher``: ``[(cfg, model or
     [model, ...]), ...]`` distills those teachers into the step (metric
-    ``distill_loss``)."""
+    ``distill_loss``).
+
+    ``dp`` (``parallel/mesh.py``; ``make_sharded_step_fns``): the steps of
+    one rank of a process group, over the rank's rows of the global batch.
+    The training BatchNorms, the CE and KL normalisers and the regulariser
+    take the global batch's sums, each micro-batch's loss is the rank's share
+    of the global loss, the gradients are summed over the ranks before
+    ``grad_norm`` and Adam, and every metric is the global batch's."""
     t = cfg.train
     reg_w = t.reg_weight
     num_classes = cfg.model.num_classes
@@ -170,17 +188,26 @@ def make_step_fns(
         data_loss = lambda lg, lb, cw: weighted_cross_entropy(lg, lb, cw, ignore)
         data_loss_parts = lambda lg, lb, cw: weighted_cross_entropy_parts(lg, lb, cw, ignore)
 
+    world = 1 if dp is None else dp.world
+
     def train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
+        with sync_batch_norm(model, dp):
+            metrics = _train_step(state, batch)
+        state.apply_gradients()
+        return metrics
+
+    def _train_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        model = state.model
         cw = weights_on(state.device)
-        gen = state.step_generator()
+        gen = state.step_generator(None if dp is None else dp.rank)
         aug = augment_batch(batch, recipe, gen)
         if teacher_fn is not None:  # on the batch the student sees, before its forward
             aug["teacher_probs"] = teacher_fn(aug["points"], aug.get("centroids"),
                                               _pad_mask(aug), aug.get("point_mask"))
         state.optimizer.zero_grad(set_to_none=True)
-        if grad_accum == 1:
+        if grad_accum == 1 and dp is None:
             logits, t_feat, _ = _forward(model, aug, gen, width)
             ce = data_loss(logits, aug["labels"], cw)
             data = ce
@@ -204,9 +231,12 @@ def make_step_fns(
                 raise ValueError(f"batch {b} not divisible by grad_accum {grad_accum}")
             mb = b // grad_accum
             # the global CE normaliser: label-only, known before any forward
-            w_total = cross_entropy_weight_sum(aug["labels"], cw, ignore).clamp_min(1e-12)
+            w_total = cross_entropy_weight_sum(aug["labels"], cw, ignore)
             # the global KL normaliser, label-only as well: the valid points
-            n_total = (aug["labels"] != ignore).float().sum().clamp_min(1.0)
+            n_total = (aug["labels"] != ignore).float().sum()
+            if dp is not None:
+                w_total, n_total = dp.sum(torch.stack([w_total, n_total])).unbind()
+            w_total, n_total = w_total.clamp_min(1e-12), n_total.clamp_min(1.0)
             loss = ce = true_ce = reg = dl = torch.zeros((), device=state.device)
             cm = torch.zeros((num_classes, num_classes), dtype=torch.long, device=state.device)
             for k in range(grad_accum):
@@ -220,8 +250,9 @@ def make_step_fns(
                                                  micro["labels"], temp, ignore)[0] / n_total
                     data_k = (1.0 - alpha) * ce_k + alpha * dl_k
                     dl = dl + dl_k.detach()
-                reg_k = orthogonality_regularizer(t_feat)
-                loss_k = data_k + reg_w * reg_k / grad_accum
+                # the same global norm on every rank: each carries 1/world of it
+                reg_k = orthogonality_regularizer(t_feat, dp)
+                loss_k = data_k + reg_w * reg_k / (grad_accum * world)
                 loss_k.backward()
                 logits = logits.detach()
                 tce_k = (weighted_cross_entropy_parts(logits, micro["labels"], cw, ignore)[0]
@@ -231,9 +262,12 @@ def make_step_fns(
                 true_ce = true_ce + tce_k
                 cm = cm + confusion_matrix(logits.argmax(-1), micro["labels"], num_classes)
             reg = reg / grad_accum
+            if dp is not None:
+                all_reduce_grads(model, dp)
+                loss, ce, true_ce, dl = dp.sum(torch.stack([loss, ce, true_ce, dl])).unbind()
+                cm = dp.sum(cm)
         grad_norm = torch.stack([p.grad.square().sum() for p in model.parameters()
                                  if p.grad is not None]).sum().sqrt()
-        state.apply_gradients()
         metrics = {"loss": loss, "ce_loss": true_ce, "reg_loss": reg, "confusion": cm,
                    "grad_norm": grad_norm}
         if focal_gamma > 0:
@@ -252,13 +286,14 @@ def make_step_fns(
                 logits, _, _ = _forward(model, batch, None, width)
         finally:
             model.train(was_training)
-        ce = data_loss(logits, batch["labels"], cw)
+        ce = global_mean(data_loss_parts(logits, batch["labels"], cw), dp)
         preds = logits.argmax(-1)
+        cm = confusion_matrix(preds, batch["labels"], num_classes)
         # validation loss is the data term only (train_pointnet-attention.py:471-473)
-        metrics = {"loss": ce, "ce_loss": ce,
-                   "confusion": confusion_matrix(preds, batch["labels"], num_classes)}
+        metrics = {"loss": ce, "ce_loss": ce, "confusion": cm if dp is None else dp.sum(cm)}
         if focal_gamma > 0:
-            metrics["ce_loss"] = weighted_cross_entropy(logits, batch["labels"], cw, ignore)
+            metrics["ce_loss"] = global_mean(
+                weighted_cross_entropy_parts(logits, batch["labels"], cw, ignore), dp)
             metrics["focal_loss"] = ce
         return metrics, preds
 

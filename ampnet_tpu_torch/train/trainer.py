@@ -19,6 +19,13 @@
   carry the ``no_tower``/``tower`` tags.
 * ``teacher`` distills frozen teachers into the segmentation step
   (``train/distill.py``); its ``distill_loss`` joins the epoch metrics.
+* ``dp`` (``parallel/mesh.py``) makes this the trainer of one rank of a
+  process group: rank 0's weights are broadcast, each step takes the rank's
+  rows of every global batch (or its columns of the cache's index matrix),
+  and the steps return the global batch's metrics, so every rank takes the
+  same best-checkpoint, plateau and early-stop decisions. Only rank 0 prints
+  and writes checkpoints and CSV logs; ``fit`` ends when rank 0's last write
+  has landed, so a ``resume`` on every rank reads it.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from ampnet_tpu_torch.core.logging import MetricsLogger
 from ampnet_tpu_torch.core.metrics import iou_from_confusion
 from ampnet_tpu_torch.data.device_cache import DeviceCachedBatcher
 from ampnet_tpu_torch.data.pipeline import to_device_batch
+from ampnet_tpu_torch.parallel.mesh import replicate_state, shard_batch
 from ampnet_tpu_torch.train.epoch import make_epoch_fns, stack_metrics
 from ampnet_tpu_torch.train.state import create_train_state
 from ampnet_tpu_torch.train.step import make_step_fns
@@ -79,6 +87,15 @@ def epoch_metrics(confusions: List[np.ndarray], losses: Dict[str, List[float]]) 
     return out
 
 
+class _Unlogged:
+    """The loggers of a rank other than 0: only rank 0 writes the CSVs."""
+
+    def scalar(self, *args) -> None:
+        pass
+
+    scalars = flush = close = scalar
+
+
 class Trainer:
     def __init__(
         self,
@@ -93,8 +110,11 @@ class Trainer:
         device="cuda",
         step_fns: Optional[Tuple[Callable, Callable]] = None,
         teacher=None,
+        dp=None,
     ):
-        self.device = resolve_device(device)
+        self.dp = dp
+        self.writer = dp is None or dp.rank == 0
+        self.device = dp.device if dp is not None else resolve_device(device)
         self.cfg = cfg
         self.train_data = train_data
         self.val_data = val_data
@@ -103,16 +123,21 @@ class Trainer:
         self.task = task
         self.steps_per_epoch = max(len(train_data), 1)
         self.state = create_train_state(cfg, model, self.steps_per_epoch, self.device)
+        if dp is not None:
+            replicate_state(self.state, dp)
         # the segmentation steps (distilling ``teacher``, train/distill.py)
         # unless the caller brings its own (classification)
-        self.train_step, self.eval_step = step_fns or make_step_fns(cfg, augment=augment,
-                                                                    teacher=teacher)
+        self.train_step, self.eval_step = step_fns or make_step_fns(
+            cfg, augment=augment, teacher=teacher, dp=dp)
         self.train_epoch, self.eval_epoch = make_epoch_fns(self.train_step, self.eval_step)
-        counts = parameter_counts(model)
-        print("Trainable params: " + ", ".join(f"{k}={v:,}" for k, v in counts.items()))
         self.ckpt = CheckpointManager(f"{workdir}/checkpoints")
-        self.log_train = MetricsLogger(f"{workdir}/logs", f"{name}_train")
-        self.log_val = MetricsLogger(f"{workdir}/logs", f"{name}_val")
+        if self.writer:
+            counts = parameter_counts(model)
+            print("Trainable params: " + ", ".join(f"{k}={v:,}" for k, v in counts.items()))
+            self.log_train = MetricsLogger(f"{workdir}/logs", f"{name}_train")
+            self.log_val = MetricsLogger(f"{workdir}/logs", f"{name}_val")
+        else:
+            self.log_train = self.log_val = _Unlogged()
         self.best_val_loss = float("inf")
         self.epochs_since_improvement = 0
         self.epoch = 0
@@ -130,14 +155,18 @@ class Trainer:
 
     def _dispatch(self, data, train: bool) -> Dict[str, torch.Tensor]:
         """Queue one epoch's steps; the metrics come back stacked, on the device."""
+        # under a group, the rank's rows: of each micro-batch when training
+        accum = self.cfg.train.grad_accum if train else 1
         if isinstance(data, DeviceCachedBatcher):
-            idxs, pads, _ = data.epoch_index_matrix()
+            idxs, pads, _ = data.epoch_index_matrix(self.dp, accum)
             if idxs.shape[0] == 0:
                 return {}
             fn = self.train_epoch if train else self.eval_epoch
             return fn(self.state, data.data, idxs, pads)
         per_step = []
         for batch in data:
+            if self.dp is not None:
+                batch = shard_batch(batch, self.dp, accum)
             dev = to_device_batch(batch, self.device)
             per_step.append(self.train_step(self.state, dev) if train
                             else self.eval_step(self.state, dev)[0])
@@ -170,6 +199,8 @@ class Trainer:
                 print(f"async checkpoint also failed during teardown: {e}", file=sys.stderr)
             raise
         self.ckpt.wait()
+        if self.dp is not None:  # rank 0's last checkpoint is on disk for every rank
+            self.dp.barrier()
         self.log_train.scalar("total_hours", (time.time() - t_start) / 3600, self.epoch)
         self.log_train.flush()
         return history
@@ -220,6 +251,8 @@ class Trainer:
 
     def _save_best(self, metrics: Dict) -> None:
         self.state.epoch = self.epoch
+        if not self.writer:
+            return
         meta = dict(
             task=self.task,
             accuracy=metrics.get("accuracy", 0.0),

@@ -130,7 +130,26 @@ the run (non-zero exit, no result line) when it does not hold:
    ``--grad_accum`` 1 and 2, and its card step against the CPU's; (g)
    ``demo --geom_features --backend fused``. (e) and (f) launch neither
    kernel. The ``geometry:`` line prints every number beside the card;
-11. results -- one ``{"kernels": [...]}`` line, then as the last line
+11. parallel -- data parallelism at full width (``parallel_phase``): (a)
+   one NCCL rank (world size 1) through the sharded step against the plain
+   step, on seeded weights and a 32 x 9 x 2048 batch of phase 6's data
+   (dropout 0, no augmentation): loss to 1e-5 relative, gradients to 1e-4 of each
+   parameter's largest, running statistics to 1e-6, and the warm step of
+   each timed; (b) two gloo ranks sharing the card (NCCL refuses two ranks
+   on one device) against one process on the global batch: in float64 the
+   summed gradients to 1e-4 (grad_accum 1 and 2) and 3 steps' losses to
+   3e-3 (step 1 to 1e-5); in float32 the losses bit-identical across ranks
+   and step 1 to 1e-5, the later steps printed beside one process against
+   itself on the same clouds reversed (the float32 noise floor); (c)
+   ``train --num_devices 2 --device cuda`` exits 1 naming the counts on one
+   card (trains 1 epoch, rank 0 alone writing, on two or more); (d)
+   ``TiledInferencer(devices=[cuda:0, cuda:0])`` under fused and int8, each
+   shard's answers equal to ``predict_many`` on one device, launches per
+   shard bucket forward as in phase 5, and ``serve --num_devices 2`` exiting
+   1 on one card; (e) the window-axis forward on 1 x 2 and 2 x 1 grids of
+   cuda:0 against the single forward to 2e-5. No kernel launches in (a), (b)
+   and (e). The ``parallel:`` line prints every number beside the card;
+12. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -925,7 +944,7 @@ def request_breakdown(inferencer, clouds) -> dict:
         "tiling": lambda: balanced_kmeans(
             feats, k, generator=torch.Generator(device=dev).manual_seed(0),
             capacities=(cap,) * k),
-        "forward": lambda: inferencer._forwards[0](windows, cent, None),
+        "forward": lambda: inferencer._forwards_on[dev][0](windows, cent, None),
         "forward_int8": lambda: int8_forward(windows, cent, None),
         **requests,
     }
@@ -2622,6 +2641,353 @@ def geometry_phase(tiles_dir, tiles_data, dev, card, work) -> dict:
     return launches, rows
 
 
+# phase 11: data parallelism at full width. The training runs take phase 6's
+# dataset (32 x 9 x 2048 a global batch); the sharded serve runs take 4
+# clouds of 50,000 points and 2 of 20,000 over two replicas on cuda:0.
+PAR_STEPS = 3
+PAR_SERVE_POINTS = (50_000, 50_000, 50_000, 50_000, 20_000, 20_000)
+PAR_DEVICES = ("cuda:0", "cuda:0")  # two replicas on the one card
+
+
+def par_state(cfg, dev, dtype=torch.float32):
+    """A train state of the seeded flagship in ``dtype`` on ``dev``: the same
+    weights in every process."""
+    from ampnet_tpu_torch.train.state import create_train_state
+
+    return create_train_state(cfg, seeded_model(cfg).train().to(dev, dtype), 1, dev)
+
+
+def cast_batch(batch, dtype):
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+
+
+def par_grads(state) -> dict:
+    return {n: p.grad.detach().cpu().double() for n, p in state.model.named_parameters()}
+
+
+def grad_err_of_max(ref, got, cancelled) -> float:
+    """The largest |g − g_ref| over each parameter's largest |g_ref|, over
+    the parameters whose gradient is determined (``step_on_card_and_cpu``)."""
+    err = 0.0
+    for name, g_ref in ref.items():
+        scale = g_ref.abs().max().item()
+        if name in cancelled or scale < GRAD_NOISE:
+            continue
+        err = max(err, (got[name] - g_ref).abs().max().item() / scale)
+    return err
+
+
+def kernel_launches() -> int:
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
+
+    return fused_mlp_chain.launches + quantized_mlp_chain.launches
+
+
+def reset_launches() -> None:
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
+
+    fused_mlp_chain.launches = quantized_mlp_chain.launches = 0
+
+
+def timed_steps(step, state, batch, n) -> tuple:
+    """(losses, host ms of each step, each ending in a sync)."""
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch)["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def sharded_runs(step_for, batch, cfg, dev, shard) -> dict:
+    """(b)'s runs of one side: in float64 PAR_STEPS steps (grad_accum 1; the
+    gradients of step 1, every loss) and one grad_accum 2 step (its
+    gradients); in float32 PAR_STEPS steps (the losses, each step's host
+    ms). ``step_for(accum)`` is the side's train step, ``shard(batch,
+    accum)`` its rows of the global batch."""
+    out = {}
+    for dtype, name in ((torch.float64, "64"), (torch.float32, "32")):
+        for accum in ((1, 2) if dtype == torch.float64 else (1,)):
+            state = par_state(cfg, dev, dtype)
+            step, rows = step_for(accum), cast_batch(shard(batch, accum), dtype)
+            losses, ms = timed_steps(step, state, rows, 1)
+            if dtype == torch.float64:
+                out[f"grads64_{accum}"] = par_grads(state)
+            if accum == 1:
+                more = timed_steps(step, state, rows, PAR_STEPS - 1)
+                losses, ms = losses + more[0], ms + more[1]
+            out[f"losses{name}_{accum}"], out[f"step_ms{name}"] = losses, ms
+            del state, rows
+            torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(dp, data_dir, names, out_dir):
+    """Phase 11 (b), one of two gloo ranks that share cuda:0: its rows of the
+    global batch through the sharded step (``sharded_runs``); saved as
+    ``rank<r>.pt``."""
+    from ampnet_tpu_torch.core.config import AMPNetConfig, ModelConfig
+    from ampnet_tpu_torch.parallel.mesh import make_sharded_step_fns, shard_batch
+
+    cfg = AMPNetConfig(model=ModelConfig(dropout=0.0))
+    batch = step_batch(data_dir, names, dp.device, batch=TRAIN_BATCH)
+    reset_launches()
+    out = sharded_runs(lambda accum: make_sharded_step_fns(cfg, dp, augment=False,
+                                                           grad_accum=accum)[0],
+                       batch, cfg, dp.device, lambda b, accum: shard_batch(b, dp, accum))
+    out["launches"] = kernel_launches()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save(out, os.path.join(out_dir, f"rank{dp.rank}.pt"))
+
+
+def parallel_world_one(cfg, batch, dev, cancelled, work) -> dict:
+    """(a): one NCCL rank through the sharded step against the plain step on
+    the same weights and batch; then warm steps of each, timed."""
+    from ampnet_tpu_torch.parallel.mesh import (
+        close_data_parallel,
+        init_data_parallel,
+        make_sharded_step_fns,
+    )
+    from ampnet_tpu_torch.train.step import make_step_fns
+
+    dp = init_data_parallel(0, 1, dev, init_method="file://" + os.path.join(work, "store_a"))
+    try:
+        plain, sharded = make_step_fns(cfg, augment=False)[0], make_sharded_step_fns(
+            cfg, dp, augment=False)[0]
+        states = {"plain": par_state(cfg, dev), "sharded": par_state(cfg, dev)}
+        loss = {k: float((plain if k == "plain" else sharded)(s, batch)["loss"])
+                for k, s in states.items()}
+        grads = {k: par_grads(s) for k, s in states.items()}
+        stats = max((a - b).abs().max().item() for a, b in zip(
+            states["plain"].model.buffers(), states["sharded"].model.buffers()))
+        out = {"loss_rel_err": abs(loss["sharded"] - loss["plain"]) / abs(loss["plain"]),
+               "grad_err_of_max": grad_err_of_max(grads["plain"], grads["sharded"], cancelled),
+               "bn_stats_err": stats}
+        windows = batch["points"].shape[0] * batch["points"].shape[1]
+        for _ in range(2):  # the other order: each side warm before its timing
+            for name, step in (("sharded", sharded), ("plain", plain)):
+                _, ms = timed_steps(step, states[name], batch, PAR_STEPS)
+                out[f"{name}_step_ms"] = sum(ms) / len(ms)
+        for name in ("sharded", "plain"):
+            out[f"{name}_windows_per_sec"] = windows / (out[f"{name}_step_ms"] / 1e3)
+    finally:
+        close_data_parallel()
+    _say("  (a) one NCCL rank against the plain step: " + json.dumps(out))
+    if not (out["loss_rel_err"] <= 1e-5 and out["grad_err_of_max"] <= 1e-4
+            and out["bn_stats_err"] <= 1e-6):
+        raise RuntimeError("the sharded step at world size 1 differs from the plain step")
+    return out
+
+
+def parallel_two_ranks(cfg, data_dir, names, dev, cancelled, work) -> dict:
+    """(b): two gloo ranks on cuda:0 against one process on the global batch
+    (``sharded_runs`` on both sides). float64 holds the arithmetic: the
+    summed gradients to 1e-4 of each parameter's largest (grad_accum 1 and
+    2), the losses of PAR_STEPS steps to 3e-3 (step 1 to 1e-5). float32, the
+    path training runs: every loss bit-identical across the ranks and step 1
+    to 1e-5; its later steps are printed beside one process against itself
+    on the same clouds in another order (the float32 noise floor: Adam's
+    first updates are about lr · sign(g), so rounding-level gradients move
+    parameters by lr either way)."""
+    import gc
+
+    from ampnet_tpu_torch.parallel.mesh import spawn_ranks
+    from ampnet_tpu_torch.train.step import make_step_fns
+
+    batch = step_batch(data_dir, names, dev, batch=TRAIN_BATCH)
+    plain = lambda accum: make_step_fns(cfg, augment=False, grad_accum=accum)[0]
+    one = sharded_runs(plain, batch, cfg, dev, lambda b, accum: b)
+    flipped = {k: v.flip(0) for k, v in batch.items()}  # the same clouds, reversed
+    state = par_state(cfg, dev)
+    one["losses32_flipped"], _ = timed_steps(plain(1), state, flipped, PAR_STEPS)
+    del state, batch, flipped
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(work, "ranks")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    spawn_ranks(parallel_rank, 2, device=PAR_DEVICES[0], backend="gloo",
+                args=(data_dir, names, out_dir))
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(2)]
+    rel = lambda a, b: [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    out = {"ranks_s": spawn_s,
+           "two_rank_step_ms": sum(ranks[0]["step_ms32"][1:]) / (PAR_STEPS - 1),
+           "one_process_step_ms": sum(one["step_ms32"][1:]) / (PAR_STEPS - 1),
+           "rank_peak_gib": [r["peak_gib"] for r in ranks],
+           "rank_launches": [r["launches"] for r in ranks],
+           "losses_bit_identical": all(ranks[0][k] == ranks[1][k]
+                                       for k in ("losses64_1", "losses64_2", "losses32_1")),
+           "float64_loss_rel_err": rel(ranks[0]["losses64_1"], one["losses64_1"]),
+           "float64_accum2_loss_rel_err": rel(ranks[0]["losses64_2"], one["losses64_2"])[0],
+           "float32_losses": {"ranks": ranks[0]["losses32_1"], "one": one["losses32_1"],
+                              "one_reversed": one["losses32_flipped"]},
+           "float32_loss_rel_err": rel(ranks[0]["losses32_1"], one["losses32_1"]),
+           "float32_noise_floor_rel_err": rel(one["losses32_flipped"], one["losses32_1"])}
+    for accum in (1, 2):
+        out[f"float64_grad_err_of_max_accum{accum}"] = max(
+            grad_err_of_max(one[f"grads64_{accum}"], r[f"grads64_{accum}"], cancelled)
+            for r in ranks)
+    _say("  (b) two gloo ranks on one card against one process: " + json.dumps(out))
+    f64 = out["float64_loss_rel_err"]
+    if not (out["losses_bit_identical"] and out["rank_launches"] == [0, 0]
+            and f64[0] <= 1e-5 and max(f64) <= 3e-3
+            and out["float64_accum2_loss_rel_err"] <= 1e-5
+            and all(out[f"float64_grad_err_of_max_accum{a}"] <= 1e-4 for a in (1, 2))
+            and out["float32_loss_rel_err"][0] <= 1e-5):
+        raise RuntimeError("two ranks do not give the one-process step on the global batch")
+    return out
+
+
+def parallel_train_cli(data_dir, work) -> dict:
+    """(c): ``train --num_devices 2 --device cuda``: with one card it exits 1
+    naming the counts; with two or more it trains 1 epoch and rank 0 alone
+    writes."""
+    from ampnet_tpu_torch.cli.main import main as cli_main
+
+    cards = torch.cuda.device_count()
+    out_dir = os.path.join(work, "par_out")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(["train", data_dir, "--path_list_files", data_dir, "--out_path", out_dir,
+                       "--device", "cuda", "--num_devices", "2", "--epochs", "1",
+                       "--batch_size", str(TRAIN_BATCH), "--seed", str(SEED)])
+    if cards < 2:
+        case = "one card: refused"
+        ok = rc == 1 and "needs 2 CUDA devices; 1 visible" in err.getvalue()
+    else:
+        case = f"{cards} cards: trained"
+        with open(os.path.join(out_dir, "logs", "attention_segmentation_train",
+                               "scalars.csv")) as f:
+            loss_rows = [r for r in f.read().splitlines() if r.split(",")[2] == "loss"]
+        ok = (rc == 0 and os.listdir(os.path.join(out_dir, "checkpoints"))
+              == ["attention_segmentation_best"] and len(loss_rows) == 1)
+    out = {"case": case, "rc": rc, "stderr": err.getvalue().strip()[-300:]}
+    _say("  (c) train --num_devices 2 --device cuda: " + json.dumps(out))
+    if not ok:
+        raise RuntimeError("train --num_devices 2 did not behave for this card count")
+    return out
+
+
+def parallel_serve(model, cfg) -> tuple:
+    """(d): TiledInferencer over two replicas on cuda:0 under fused and int8:
+    every answer equals predict_many on one device over its shard's clouds
+    and seeds, and each shard bucket forward launches the kernels as a
+    bucket forward does. Returns (launches by backend, the numbers)."""
+    from ampnet_tpu_torch.cli.main import main as cli_main
+    from ampnet_tpu_torch.core.weights import flax_variables, save_reference_pth
+    from ampnet_tpu_torch.infer.tiled import TiledInferencer
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
+
+    rng = np.random.default_rng(SEED + 11)
+    clouds = []
+    for n in PAR_SERVE_POINTS:
+        c = rng.normal(size=(n, 9)).astype(np.float32) * 0.5
+        c[:, :2] = rng.uniform(-1.0, 1.0, size=(n, 2))
+        clouds.append(c)
+    seeds = list(range(len(clouds)))
+    launches, out = {}, {}
+    for backend, per in LAUNCHES_PER_FORWARD.items():
+        one = TiledInferencer(copy.deepcopy(model), cfg, backend=backend, device=PAR_DEVICES[0])
+        two = TiledInferencer(copy.deepcopy(model), cfg, backend=backend, devices=PAR_DEVICES)
+        two.predict_many(clouds, seeds=seeds)  # warm: every shape once
+        reset_launches()  # the main path's run starts here
+        t0 = time.perf_counter()
+        handle = two.dispatch_many(clouds, seeds=seeds)
+        got = two.fetch_many(handle)
+        wall = time.perf_counter() - t0
+        counts = {"fused_mlp_chain": fused_mlp_chain.launches,
+                  "quantized_mlp_chain": quantized_mlp_chain.launches}  # ... and ends here
+        forwards = len(handle["pending"])
+        if any(counts[k] != per[k] * forwards for k in counts):
+            raise RuntimeError(f"{backend}: {counts} over {forwards} shard bucket forwards")
+        for idxs, _ in handle["pending"]:
+            want = one.predict_many([clouds[i] for i in idxs], seeds=[seeds[i] for i in idxs])
+            for i, w in zip(idxs, want):
+                if not np.array_equal(got[i], w):
+                    raise RuntimeError(f"{backend}: cloud {i} differs from its shard on one "
+                                       "device")
+        t0 = time.perf_counter()
+        one.predict_many(clouds, seeds=seeds)
+        launches[backend] = counts
+        out[backend] = {"shard_bucket_forwards": forwards, "launches": counts,
+                        "shards": [len(idxs) for idxs, _ in handle["pending"]],
+                        "sharded_wall_ms": wall * 1e3,
+                        "one_device_wall_ms": (time.perf_counter() - t0) * 1e3}
+        del one, two
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "m.pth")
+        save_reference_pth(flax_variables(model), pth, meta={"number_of_points": 2048})
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = (cli_main(["serve", "--model_checkpoint", pth, "--num_devices", "2"])
+                  if torch.cuda.device_count() < 2 else None)
+    out["serve_num_devices_2"] = {"rc": rc, "stderr": err.getvalue().strip()[-200:]}
+    _say("  (d) sharded serving on two replicas: " + json.dumps(out))
+    if rc is not None and (rc != 1 or "needs 2 CUDA devices" not in err.getvalue()):
+        raise RuntimeError("serve --num_devices 2 on one card did not exit 1")
+    return launches, out
+
+
+def parallel_windows(model, dev) -> dict:
+    """(e): the window-axis forward on [cuda:0] grids 1 x 2 and 2 x 1 against
+    the single forward at MODEL_SHAPE; neither kernel launches."""
+    from ampnet_tpu_torch.parallel.window_shard import make_grid, make_window_sharded_forward
+
+    b, w, n = MODEL_SHAPE
+    g = torch.Generator().manual_seed(SEED + 12)
+    points = (torch.randn(b, w, n, 9, generator=g) * 0.5).to(dev)
+    cent = torch.rand(b, w, 2, generator=g).to(dev)
+    pad = torch.zeros(b, w, dtype=torch.bool, device=dev)
+    pad[:, -1] = True
+    with torch.inference_mode():
+        single = model(points, cent, pad)[0]
+    reset_launches()
+    out = {}
+    for nd, nw in ((1, 2), (2, 1)):
+        fwd = make_window_sharded_forward(model, make_grid(nd, nw, [dev, dev]))
+        out[f"{nd}x{nw}_max_abs_err"] = (fwd(points, cent, pad) - single).abs().max().item()
+    out["launches"] = kernel_launches()
+    _say("  (e) window-axis forward: " + json.dumps(out))
+    if out["launches"] or max(v for k, v in out.items() if k.endswith("err")) > 2e-5:
+        raise RuntimeError("the window-axis forward differs from the single forward")
+    return out
+
+
+def parallel_phase(model, cfg, dev, card, work) -> dict:
+    """Phase 11: (a)-(e) on phase 6's dataset in ``work/data`` → the sharded
+    serve runs' launches by backend."""
+    from ampnet_tpu_torch.core.config import AMPNetConfig, ModelConfig
+    from ampnet_tpu_torch.data.io_utils import read_split_list
+
+    t_phase = time.perf_counter()
+    gc_cuda()  # (a) and (b) hold 37 GB of float64 steps: start from an empty cache
+    data_dir = os.path.join(work, "data")
+    names = read_split_list(os.path.join(data_dir, "train_seg_files.txt"))
+    no_drop = AMPNetConfig(model=ModelConfig(dropout=0.0))
+    cancelled = biases_before_batch_norm(seeded_model(no_drop))
+    reset_launches()
+    line = {"card": card, "batch": [TRAIN_BATCH, TRAIN_WINDOWS, TRAIN_POINTS]}
+    line["a"] = parallel_world_one(no_drop, step_batch(data_dir, names, dev, batch=TRAIN_BATCH),
+                                   dev, cancelled, work)
+    line["a"]["launches"] = kernel_launches()
+    torch.cuda.empty_cache()
+    line["b"] = parallel_two_ranks(no_drop, data_dir, names, dev, cancelled, work)
+    line["c"] = parallel_train_cli(data_dir, work)
+    launches, line["d"] = parallel_serve(model, cfg)
+    line["e"] = parallel_windows(model, dev)
+    line["phase_s"] = time.perf_counter() - t_phase
+    _say("parallel: " + json.dumps(line))
+    if line["a"]["launches"]:
+        raise RuntimeError("a kernel launched on the sharded training step")
+    _say(f"  parallel phase: {line['phase_s']:.2f} s")
+    return launches
+
+
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, and the host
     solver by ``g++``, all started together, and loaded."""
@@ -2653,47 +3019,50 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     _say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    _say("[1/11] card")
+    _say("[1/12] card")
     card = card_line()
     _say(card)
 
-    _say("[2/11] build")
+    _say("[2/12] build")
     build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
-    _say("[3/11] kernels against their plain versions")
+    _say("[3/12] kernels against their plain versions")
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/11] model: fused and int8 against the module forward")
+    _say("[4/12] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
-    _say("[5/11] serve")
+    _say("[5/12] serve")
     runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
     cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as work:
-        _say("[6/11] train")
+        _say("[6/12] train")
         train_launches, ckpt = train_phase(dev, card, work)
 
-        _say("[7/11] evaluate")
+        _say("[7/12] evaluate")
         eval_launches = evaluate_phase(ckpt, dev, card, work)
 
-        _say("[8/11] tiles: host data stages, whole-tile infer, demo")
+        _say("[8/12] tiles: host data stages, whole-tile infer, demo")
         tile_launches, tiles_data = tiles_phase(ckpt, dev, card, work)
         eval_launches.update(tile_launches)
 
-        _say("[9/11] families: gru, classification, baseline, classic, pointnet2")
+        _say("[9/12] families: gru, classification, baseline, classic, pointnet2")
         families_phase(ckpt, dev, card, work)
 
-        _say("[10/11] geometry: eigenfeature columns, edge block, geom tokens, distillation")
+        _say("[10/12] geometry: eigenfeature columns, edge block, geom tokens, distillation")
         geom_launches, geom_rows = geometry_phase(os.path.join(work, "tiles"), tiles_data,
                                                      dev, card, work)
 
-    _say("[11/11] results")
+        _say("[11/12] parallel: sharded steps, two ranks, sharded serving, window axis")
+        par_launches = parallel_phase(model, cfg, dev, card, work)
+
+    _say("[12/12] results")
     # launches only where the serving runs counted them: each kernel in both
     # runs, and each serving chain once per bucket forward that ran it (its M
     # there is 18 x clouds in the bucket); the other cases are shapes the
@@ -2715,6 +3084,11 @@ def main() -> int:
                 total["launches_by_run"][run] = counts[name]
         # phase 10 checked 0 on the edge + token runs and in the teachers
         total["launches_by_run"]["geometry_edge_tokens_distill"] = 0
+        for backend, counts in par_launches.items():  # phase 11's sharded serve runs
+            if LAUNCHES_PER_FORWARD[backend][name]:
+                total["launches_by_run"][f"parallel_serve_{backend}"] = counts[name]
+        # phase 11 checked 0 on the sharded steps (both ranks) and the window axis
+        total["launches_by_run"]["parallel_train_window_axis"] = 0
         total["launches"] = sum(total["launches_by_run"].values())
     tnets = ("serve:input_tnet", "serve:feature_tnet")  # the T-Nets run under both backends
     for row in fused_cases:

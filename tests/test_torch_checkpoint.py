@@ -309,7 +309,8 @@ def test_trainer_train_and_serve_default_to_the_card(tmp_path, small_cfg, monkey
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--num_devices", "2"], "item 5"),
+    # data parallelism needs as many cards as ranks: none here
+    (["--num_devices", "2", "--device", "cuda"], "needs 2 CUDA devices; 0 visible"),
     (["--dtype", "bfloat16"], "item 7"),
     (["--oversample_factor", "2"], "item 7"),
     (["--seg_weighing", "INS"], "item 7"),

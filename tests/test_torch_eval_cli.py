@@ -233,7 +233,8 @@ def test_grouping_and_refusals(tmp_path, capsys):
                          "classification"], "is a segmentation checkpoint"),
                        (["test", *base, "--model_checkpoint", f"{a},{c}", "--task",
                          "classification"], "ensembles support segmentation only"),
-                       (["serve", "--model_checkpoint", a, "--num_devices", "2"], "item 5"),
+                       (["serve", "--model_checkpoint", a, "--num_devices", "2"],
+                        "needs 2 CUDA devices; 0 visible"),
                        (["serve", "--model_checkpoint", a, "--task", "classification",
                          "--device", "cpu"], "attention/gru segmenters")):
         assert main(argv) == 1, argv

@@ -37,12 +37,16 @@ def test_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(ampnet_tpu_torch.__path__, 'ampnet_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    names = out.stdout.split()
+    assert len(names) >= 15
+    # the data-parallel modules stand alone as well
+    assert {f"ampnet_tpu_torch.parallel.{m}" for m in ("mesh", "window_shard",
+                                                       "multihost_check")} <= set(names)
 
 
 IMPORT_RE = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax|ampnet_tpu)(\.|\s|$)",
