@@ -32,35 +32,32 @@ package: the others are refused there, except that ``serve``'s default
 geometric feature columns (``train --geom_features``) reads them on every
 command: the datasets select them, the wire of ``serve`` carries them, and
 whole-tile ``infer`` recomputes them. The edge block and the geometry tokens
-run only under ``xla``, as in the JAX package. Options of the JAX command
-line that the port does not cover yet exit 1 with the ROADMAP.md item that
-owns them.
+run only under ``xla``, as in the JAX package. ``train`` takes every option
+of the JAX command's ``train``: ``--dtype bfloat16`` (a checkpoint that
+records it is evaluated in bfloat16 under ``--backend xla``; the other
+backends take their dtype from their name), ``--oversample_factor`` /
+``--oversample_classes`` (``rare_class_repeats``), ``--seg_weighing``
+(``seg_class_weights``) and ``--epoch_dispatch``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import json
+import math
 import os
 import sys
 
 from ampnet_tpu_torch.models.backends import BACKENDS
 
-TRAIN_REST = "ROADMAP.md Queue 1, item 7 (training options)"
 NON_XLA = ("non-xla backends (folded/bf16/fused/int8) support the attention segmenter only; "
            "use --backend xla")
 
 
 class Refused(ValueError):
     """A request the command line refuses: ``main`` prints it and exits 1."""
-
-
-def _refuse_unported(checks) -> None:
-    """Raise ``Refused`` for the first (hit, flag, item) that hits."""
-    for hit, flag, item in checks:
-        if hit:
-            raise Refused(f"{flag} is not ported yet: {item}")
 
 
 def _restore_reference(path: str, device, arch: str, task: str):
@@ -449,19 +446,16 @@ def _load_lists(path_list_files: str, task: str = "segmentation"):
 
 
 def _refuse_train_options(args) -> None:
-    """Refuse the train options this port does not cover yet, and those the
-    JAX command refuses for classification."""
-    _refuse_unported([
-        (args.dtype != "float32", f"--dtype {args.dtype}", TRAIN_REST),
-        (args.oversample_factor > 1, f"--oversample_factor {args.oversample_factor}", TRAIN_REST),
-        (bool(args.seg_weighing), "--seg_weighing", TRAIN_REST),
-    ])
+    """Refuse what the JAX command refuses before it reads the data (its
+    messages), and what the port does besides (``--num_devices`` below 1,
+    ``--grad_accum`` below 1, ``--geom_k`` below 1)."""
     if args.num_devices < 1:
         raise Refused(f"--num_devices must be >= 1, got {args.num_devices}")
-    if args.grad_accum < 1 or args.batch_size % (args.grad_accum * args.num_devices):
+    if args.grad_accum < 1 or args.batch_size % args.grad_accum:
+        # ranks may hold unequal shares of a micro-batch (parallel/mesh.py::rank_rows)
         raise Refused(f"--batch_size {args.batch_size} must be divisible by --grad_accum "
-                      f"{args.grad_accum} x --num_devices {args.num_devices} (equal "
-                      "micro-batches and equal shares keep the accumulated gradient exact)")
+                      f"{args.grad_accum} (equal micro-batches keep the accumulated "
+                      "gradient exact)")
     if args.task == "classification" and args.arch == "pointnet2":
         raise Refused("pointnet2 supports segmentation only")
     if args.task == "classification" and args.grad_accum > 1:
@@ -474,6 +468,58 @@ def _refuse_train_options(args) -> None:
     _check_geom_k(args.local_agg_k, "--local_agg_k")
     if args.distill_from and args.task == "classification":
         raise Refused("--distill_from is segmentation-only (per-point soft targets)")
+
+
+def seg_class_weights(train_ds, method: str, num_classes: int, beta: float,
+                      max_samples: int = 512):
+    """Data-driven CE class weights for segmentation (``--seg_weighing``):
+    ``get_class_weights`` over the point counts of each class in the first
+    ``max_samples`` train clouds (every count at least 1), as the JAX
+    command computes them (``ampnet_tpu/cli/main.py::seg_class_weights``).
+    Returns (weights or None for an unknown method, counts)."""
+    import numpy as np
+
+    from ampnet_tpu_torch.core.metrics import get_class_weights
+
+    counts = np.zeros(num_classes, np.int64)
+    for i in range(min(len(train_ds), max_samples)):
+        lab = np.asarray(train_ds[i]["labels"]).ravel()
+        counts += np.bincount(lab[lab >= 0], minlength=num_classes)[:num_classes]
+    return get_class_weights(method, np.maximum(counts, 1).tolist(), beta=beta), counts
+
+
+def rare_class_repeats(train_ds, factor: int, classes_spec: str, num_classes: int,
+                       auto_share: float = 0.05):
+    """Per-cloud epoch multiplicities for rare-class oversampling
+    (``--oversample_factor`` / ``--oversample_classes``, the JAX command's
+    ``rare_class_repeats``): a cloud holding any point of a target class
+    appears ``factor`` times an epoch. ``classes_spec`` is a comma list of
+    class ids or ``auto`` (the present classes under ``auto_share`` of the
+    valid points). Returns (repeats [len(ds)] or None, rare classes, number
+    of oversampled clouds)."""
+    import numpy as np
+
+    labels = [np.asarray(train_ds[i]["labels"]).ravel() for i in range(len(train_ds))]
+    if classes_spec == "auto":
+        counts = np.zeros(num_classes, np.int64)
+        for lab in labels:
+            counts += np.bincount(lab[(lab >= 0) & (lab < num_classes)],
+                                  minlength=num_classes)[:num_classes]
+        share = counts / max(counts.sum(), 1)
+        rare = [c for c in range(num_classes) if 0 < share[c] < auto_share]  # absent: not rare
+    else:
+        rare = sorted({int(c) for c in classes_spec.split(",") if c.strip()})
+        bad = [c for c in rare if not 0 <= c < num_classes]
+        if bad:  # a ValueError, as the JAX command raises it
+            raise ValueError(f"--oversample_classes ids out of range: {bad}")
+    if not rare:
+        return None, [], 0
+    repeats = np.ones(len(labels), np.int64)
+    for i, lab in enumerate(labels):
+        if np.isin(lab, rare).any():
+            repeats[i] = factor
+    n_over = int((repeats > 1).sum())
+    return (repeats if n_over else None), rare, n_over
 
 
 def _restore_teacher(args, device):
@@ -557,7 +603,8 @@ def _train(args, dp=None) -> int:
                         extra_features=N_GEOM_FEATURES if args.geom_features else 0,
                         geom_radius_norm=args.geom_radius_norm, geom_k=args.geom_k),
         model=ModelConfig(context=args.arch, bn_mode=args.bn_mode, local_agg=args.local_agg,
-                          local_agg_k=args.local_agg_k, att_geom_tokens=args.att_geom_tokens),
+                          local_agg_k=args.local_agg_k, att_geom_tokens=args.att_geom_tokens,
+                          dtype=None if args.dtype == "float32" else args.dtype),
         train=TrainConfig(batch_size=args.batch_size, learning_rate=args.learning_rate,
                           epochs=args.epochs, weighing_method=args.weighing_method,
                           seed=args.seed, grad_accum=args.grad_accum,
@@ -594,12 +641,12 @@ def _train(args, dp=None) -> int:
         return CloudDataset(args.dataset_path, lists[split], task=args.task,
                             number_of_points=args.number_of_points, extra_features=batch_extra)
 
-    def batcher(ds, seed):
+    def batcher(ds, seed, repeats=None):
         if ds is None:
             return None
-        # short batches pad to whole micro-batches of equal rank shares
-        kw = dict(seed=seed, drop_last=len(ds) >= args.batch_size,
-                  pad_to_multiple=args.grad_accum * args.num_devices)
+        # short batches pad to whole micro-batches and whole ranks, as JAX pads
+        kw = dict(seed=seed, drop_last=len(ds) >= args.batch_size, repeats=repeats,
+                  pad_to_multiple=math.lcm(args.num_devices, args.grad_accum))
         b = (PaddedBatcher(ds, args.batch_size, n_points=args.number_of_points,
                            max_windows=args.number_of_windows, **kw) if windowed
              else SingleCloudBatcher(ds, args.batch_size, n_points=args.number_of_points, **kw))
@@ -607,6 +654,35 @@ def _train(args, dp=None) -> int:
 
     train_ds = dataset("train")
     val_ds = dataset("val") if lists["val"] else None
+    say = dp is None or dp.rank == 0
+    repeats = None
+    osf = args.oversample_factor or 1
+    if osf > 1:
+        if args.task == "classification":
+            print("--oversample_factor is segmentation-only (the cls trainer already balances "
+                  "via class weights)", file=sys.stderr)
+            return 1
+        repeats, rare, n_over = rare_class_repeats(train_ds, osf, args.oversample_classes,
+                                                   cfg.model.num_classes)
+        if say and repeats is None:
+            print("oversampling: no rare classes found (or no cloud contains one) — "
+                  "continuing without", file=sys.stderr)
+        elif say:
+            print(f"oversampling x{osf}: {n_over}/{len(train_ds)} train clouds contain rare "
+                  f"classes {rare}", file=sys.stderr)
+    if args.task == "segmentation" and args.seg_weighing:
+        cw, counts = seg_class_weights(train_ds, args.seg_weighing, cfg.model.num_classes,
+                                       cfg.train.beta)
+        if cw is None:
+            print(f"unknown --seg_weighing {args.seg_weighing!r} (expected "
+                  "EFS|INS|ISNS|sklearn)", file=sys.stderr)
+            return 1
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, class_weights=tuple(float(x) for x in cw),
+            weighing_method=args.seg_weighing))
+        if say:
+            print(f"seg class weights ({args.seg_weighing}, counts {counts.tolist()}): "
+                  f"{[round(float(x), 5) for x in cw]}", file=sys.stderr)
     model = build_model(cfg, args.arch, args.task,
                         generator=torch.Generator().manual_seed(cfg.train.seed))
     step_fns = None
@@ -616,10 +692,11 @@ def _train(args, dp=None) -> int:
         counts = [getattr(train_ds, "len_landscape", 1), getattr(train_ds, "len_towers", 1)]
         step_fns = make_cls_step_fns(cfg, get_class_weights(
             args.weighing_method, [max(c, 1) for c in counts], beta=cfg.train.beta), dp=dp)
-    trainer = Trainer(cfg, model, batcher(train_ds, cfg.train.seed),
+    trainer = Trainer(cfg, model, batcher(train_ds, cfg.train.seed, repeats),
                       batcher(val_ds, cfg.train.seed + 1), args.out_path,
                       name=f"{args.arch}_{args.task}", task=args.task, device=device,
-                      step_fns=step_fns, teacher=teacher, dp=dp)
+                      step_fns=step_fns, teacher=teacher, dp=dp,
+                      epoch_dispatch=args.epoch_dispatch)
     try:
         if args.model_checkpoint and not trainer.resume(args.model_checkpoint):
             print(f"no checkpoint {args.model_checkpoint!r} under {trainer.ckpt.directory}",
@@ -989,10 +1066,21 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--num_devices", type=int, default=1,
                    help="data-parallel ranks, one process each: NCCL on cuda:0..N-1, or "
                         "gloo with --device cpu; --batch_size is the global batch")
-    # the JAX command line's other options: refused unless at their defaults
-    s.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
-    s.add_argument("--oversample_factor", type=int, default=1)
-    s.add_argument("--seg_weighing", default="")
+    s.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="compute dtype (parameters stay float32); recorded in the checkpoint, "
+                        "so test / infer / serve --backend xla evaluate in it too")
+    s.add_argument("--epoch_dispatch", choices=["auto", "off"], default="auto",
+                   help="auto: run each epoch over the card-resident cache as one loop with "
+                        "one metrics fetch; off: the per-step path")
+    s.add_argument("--oversample_factor", type=int, default=1,
+                   help="rare-class oversampling: train clouds holding a rare class appear N "
+                        "times an epoch (1 = off)")
+    s.add_argument("--oversample_classes", default="auto",
+                   help="comma list of class ids to oversample, or 'auto' = the classes under "
+                        "5%% of the valid train points")
+    s.add_argument("--seg_weighing", default="",
+                   help="data-driven CE class weights for segmentation (EFS|INS|ISNS|sklearn, "
+                        "from the train label histogram); default: the fixed [1,2,2,1,1]")
     s.set_defaults(fn=cmd_train)
 
     s = sub.add_parser("test", help="tiled evaluation with the IoU CSV")

@@ -212,3 +212,17 @@ class AMPNetConfig:
 
     def replace(self, **kw) -> "AMPNetConfig":
         return dataclasses.replace(self, **kw)
+
+
+COMPUTE_DTYPES = (None, "float32", "bfloat16")
+
+
+def compute_dtype(name):
+    """``ModelConfig.dtype`` as a torch dtype: None (and "float32") keeps
+    the parameters' dtype, "bfloat16" computes in bfloat16 over float32
+    parameters, as Flax's ``nn.Dense(dtype=...)`` does."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute dtype {name!r}; expected one of {COMPUTE_DTYPES}")
+    import torch
+
+    return torch.bfloat16 if name == "bfloat16" else None

@@ -8,7 +8,9 @@ card. The port's counterpart of ``ampnet_tpu/data/device_cache.py``.
   batcher re-draws it every epoch, which is the only difference.
 * A step then gathers its batch on the card from a ``[B]`` index row; the
   epoch's ``[S, B]`` index matrix takes the host batcher's order
-  (``default_rng(seed + epoch)``) and goes up once per epoch.
+  (``default_rng(seed + epoch)``, over the pool its ``repeats`` make: the
+  cache holds each sample once, only the order repeats) and goes up once
+  per epoch.
 * Under a process group the cache is replicated on every rank's device, as
   the JAX cache is over the mesh, and each rank takes its columns of the
   index matrix (``epoch_index_matrix``).
@@ -23,7 +25,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ampnet_tpu_torch.data.pipeline import HostShardedBatcher
+from ampnet_tpu_torch.data.pipeline import HostShardedBatcher, repeated_indices
 from ampnet_tpu_torch.parallel.mesh import rank_rows
 
 # a dataset larger than this stays on the host path under --device_cache auto
@@ -32,12 +34,17 @@ DEFAULT_LIMIT_BYTES = 4 * 1024**3
 
 def _single_sample_loader(batcher):
     """A copy of the host batcher that emits one padded sample per batch in
-    dataset order, with the same padding rules."""
+    dataset order, with the same padding rules: each sample once, built in
+    the calling thread, without a worker pool."""
     loader = copy.copy(batcher)
     loader.batch_size = 1
     loader.shuffle = False
     loader.drop_last = False
     loader.pad_to_multiple = 1
+    loader.repeats = None
+    loader.prefetch = 0
+    loader.workers = 0
+    loader._pool = None
     return loader
 
 
@@ -83,6 +90,7 @@ class DeviceCachedBatcher:
         self.drop_last = inner.drop_last
         self.pad_to_multiple = inner.pad_to_multiple
         self.epoch = inner.epoch
+        self.repeats = inner.repeats
         self.names: list = []
         self._build(limit_bytes)
 
@@ -102,8 +110,11 @@ class DeviceCachedBatcher:
                               f"(> limit {limit_bytes / 2**20:.0f} MiB)")
         self.data = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
 
+    def _base_indices(self) -> np.ndarray:
+        return repeated_indices(len(self.names), self.repeats)
+
     def __len__(self) -> int:
-        n = len(self.names)
+        n = len(self._base_indices())
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -115,7 +126,7 @@ class DeviceCachedBatcher:
         replicate earlier samples and are marked True."""
         rng = np.random.default_rng(self.seed + self.epoch)
         self.epoch += 1
-        order = np.arange(len(self.names))
+        order = self._base_indices()
         if self.shuffle:
             rng.shuffle(order)
         out = []

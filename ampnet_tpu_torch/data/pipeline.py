@@ -10,18 +10,35 @@
     names      list[str]             — host-side only
 
 Point-axis resampling uses ONE index list shared across a cloud's windows, as
-the reference collate does (``collate_fns.py:33-41``). Batches are built in
-the iterating thread: the training path reads them from the GPU-resident
-cache (data/device_cache.py), which builds each sample once.
+the reference collate does (``collate_fns.py:33-41``). Batches are built by a
+background thread into a bounded queue (``prefetch`` batches ahead), so host
+work overlaps the card's steps; ``workers`` > 0 loads the samples in a
+forked process pool (the reference's DataLoader ``num_workers``). The
+workers only read samples on the host: they never touch the card. The
+training path usually reads its batches from the GPU-resident cache
+(data/device_cache.py), which builds each sample once.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+_POOL_DATASET = None
+
+
+def _pool_init(dataset) -> None:
+    global _POOL_DATASET
+    _POOL_DATASET = dataset
+
+
+def _pool_get(i: int):
+    return _POOL_DATASET[i]
 
 
 def pad_windowed_sample(
@@ -75,7 +92,13 @@ def pad_to_multiple(batch: Dict, multiple: int) -> Dict:
 class PaddedBatcher:
     """Iterable over static-shape batches. Epoch e draws its order and its
     resampling from ``np.random.default_rng(seed + e)``, as the JAX batcher
-    does, so both packages see the same batches for the same seed."""
+    does, so both packages see the same batches for the same seed.
+
+    ``repeats`` (rare-class oversampling): sample i appears ``repeats[i]``
+    times in every epoch's pool before the shuffle, and ``len()`` counts the
+    repeated pool. ``prefetch`` batches are built ahead by a thread (0: in
+    the iterating thread); ``workers`` > 0 loads samples in a forked pool,
+    ended by ``close()``. Neither changes a batch."""
 
     def __init__(
         self,
@@ -87,6 +110,9 @@ class PaddedBatcher:
         drop_last: bool = True,
         seed: int = 0,
         pad_to_multiple: int = 1,
+        prefetch: int = 2,
+        workers: int = 0,
+        repeats=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -96,20 +122,49 @@ class PaddedBatcher:
         self.drop_last = drop_last
         self.seed = seed
         self.pad_to_multiple = pad_to_multiple
+        self.prefetch = prefetch
+        self.workers = workers
+        self._pool = None
         self.epoch = 0
+        if repeats is not None:
+            repeats = np.asarray(repeats, np.int64)
+            if repeats.shape != (len(dataset),) or (repeats < 1).any():
+                raise ValueError("repeats must hold one positive int per dataset sample")
+        self.repeats = repeats
+
+    def _base_indices(self) -> np.ndarray:
+        """The epoch's pool before the shuffle: each sample at its multiplicity."""
+        return repeated_indices(len(self.dataset), self.repeats)
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._base_indices())
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _epoch_order(self, rng: np.random.Generator) -> np.ndarray:
         """Sample order for one epoch; ``HostShardedBatcher`` takes its slice."""
-        order = np.arange(len(self.dataset))
+        order = self._base_indices()
         if self.shuffle:
             rng.shuffle(order)
         return order
+
+    def _load_samples(self, idxs) -> list:
+        if self.workers <= 0:
+            return [self.dataset[int(i)] for i in idxs]
+        if self._pool is None:
+            import multiprocessing as mp
+
+            self._pool = mp.get_context("fork").Pool(
+                self.workers, initializer=_pool_init, initargs=(self.dataset,))
+        return self._pool.map(_pool_get, [int(i) for i in idxs])
+
+    def close(self) -> None:
+        """End the worker pool, if one was started."""
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
 
     def _windowed(self, sample: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """A dataset sample in the windowed ``[W, N, F]`` layout."""
@@ -119,8 +174,8 @@ class PaddedBatcher:
         order = self._epoch_order(rng)
         for b in range(len(self)):
             idxs = order[b * self.batch_size: (b + 1) * self.batch_size]
-            samples = [pad_windowed_sample(self._windowed(self.dataset[int(i)]), self.n_points,
-                                           self.max_windows, rng) for i in idxs]
+            samples = [pad_windowed_sample(self._windowed(s), self.n_points, self.max_windows, rng)
+                       for s in self._load_samples(idxs)]
             batch = {
                 "points": np.stack([s["points"] for s in samples]),
                 "labels": np.stack([s["labels"] for s in samples]),
@@ -134,7 +189,10 @@ class PaddedBatcher:
     def __iter__(self) -> Iterator[Dict]:
         rng = np.random.default_rng(self.seed + self.epoch)
         self.epoch += 1
-        yield from self._make_batches(rng)
+        if self.prefetch <= 0:
+            yield from self._make_batches(rng)
+            return
+        yield from _prefetched(self._make_batches(rng), self.prefetch)
 
 
 class SingleCloudBatcher(PaddedBatcher):
@@ -180,13 +238,69 @@ class HostShardedBatcher(PaddedBatcher):
         super().__init__(dataset, global_batch_size // host_count, **kw)
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.global_batch_size
+        return len(self._base_indices()) // self.global_batch_size
 
     def _epoch_order(self, rng: np.random.Generator) -> np.ndarray:
         order = super()._epoch_order(rng)
         n = len(self) * self.global_batch_size
         order = order[:n].reshape(-1, self.host_count, self.batch_size)
         return order[:, self.host_id].reshape(-1)
+
+
+def repeated_indices(n: int, repeats=None) -> np.ndarray:
+    """``arange(n)`` with index i ``repeats[i]`` times (all once without)."""
+    if repeats is None:
+        return np.arange(n)
+    return np.repeat(np.arange(n), repeats)
+
+
+def _prefetched(batches: Iterator[Dict], depth: int) -> Iterator[Dict]:
+    """``batches`` built by a daemon thread up to ``depth`` ahead. The
+    producer's error is raised here; an abandoned iterator (a single
+    ``next``) stops the thread."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    sentinel = object()
+    stop = threading.Event()
+    err: list = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for batch in batches:
+                if not put(batch):
+                    return
+        except Exception as e:  # raised on the consumer's side
+            err.append(e)
+        finally:
+            # delivered even when the queue is full at the producer's end,
+            # or the consumer would wait on get() for ever
+            put(sentinel)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            try:
+                item = q.get(timeout=1.0)
+            except queue.Empty:
+                if not t.is_alive():  # died without its sentinel
+                    break
+                continue
+            if item is sentinel:
+                break
+            yield item
+    finally:
+        stop.set()
+    if err:
+        raise err[0]
 
 
 def global_device_batch(local_batch: Dict, device) -> Dict[str, torch.Tensor]:

@@ -32,18 +32,26 @@ Training: ``model.train()`` selects batch BatchNorm statistics and dropout
 ReLUs), ``model.eval()`` running statistics and no dropout, as Flax's
 ``train`` flag does. Dropout masks come from the ``generator`` the caller
 passes to ``forward``; the global RNG is never used.
+
+``ModelConfig.dtype = "bfloat16"`` computes every dense layer in bfloat16
+over float32 parameters (``layers.py``; Flax's ``dtype=``); ``remat``
+recomputes the window encoder's activations in the backward pass
+(``torch.utils.checkpoint``, as ``nn.remat(WindowEncoder)``) and gives the
+same numbers as the plain forward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ampnet_tpu_torch.core.config import ModelConfig
+from ampnet_tpu_torch.core.config import ModelConfig, compute_dtype
 from ampnet_tpu_torch.models.attention import WindowMHA
 from ampnet_tpu_torch.models.layers import (
     MaskedBatchNorm,
@@ -54,6 +62,9 @@ from ampnet_tpu_torch.models.layers import (
     dropout,
     make_linear,
     masked_max_pool,
+    matmul_promoted,
+    recomputing,
+    set_compute_dtype,
 )
 
 # windows whose [W, N, N] distances one kNN pass holds (16 · 2048² fp32 = 256 MiB)
@@ -163,7 +174,7 @@ class WindowEncoder(nn.Module):
 
         coords = x[..., : cfg.point_dim]
         t_in = self.input_tnet(coords, mask)
-        coords_t = coords @ t_in
+        coords_t = matmul_promoted(coords, t_in)  # float32 under a bfloat16 t_in
         # AMP quirk kept on purpose: transformed coords ‖ the FULL input
         # (pointnetAtt.py:66,86)
         h = torch.cat([coords_t, x], dim=-1)
@@ -174,7 +185,7 @@ class WindowEncoder(nn.Module):
         local_feats = h @ t_feat  # [B*W, N, 64]
         global_feats = masked_max_pool(self.mlp_b(local_feats, mask), mask)
 
-        local_feats = local_feats.reshape(B, W, N, -1)
+        local_feats = local_feats.reshape(B, W, N, local_feats.shape[-1])
         global_feats = global_feats.reshape(B, W, cfg.global_feat)
         t_feat = t_feat.reshape(B, W, 64, 64)
         if squeeze_windows:
@@ -339,22 +350,40 @@ class AMPNetSegmenter(nn.Module):
             cfg, g, use_pos_enc=True, geom_dim=2 * (num_features - 9) if self.geom_tokens else 0)
         self.head = SegmentationHead(cfg, ctx_dim, g)
         _set_bn_momentum(self, cfg.bn_momentum)
+        set_compute_dtype(self, compute_dtype(cfg.dtype))
 
     def forward(self, points, centroids=None, window_pad_mask=None, point_mask=None,
                 generator: Optional[torch.Generator] = None):
-        local_feats, global_feats, t_feat = self.encoder(points, point_mask)
-        summary = geom_summary(points, point_mask) if self.geom_tokens else None
+        local_feats, global_feats, t_feat = encode(self.encoder, points, point_mask)
+        summary = (geom_summary(points, point_mask, compute_dtype(self.cfg.dtype))
+                   if self.geom_tokens else None)
         ctx, attn_weights = _run_context(self.context, global_feats, centroids,
                                          window_pad_mask, generator, summary)
         logits = self.head(local_feats, ctx, point_mask, generator=generator)
         return logits, t_feat, attn_weights
 
 
-def geom_summary(points: torch.Tensor, point_mask: Optional[torch.Tensor]) -> torch.Tensor:
+def encode(encoder: "WindowEncoder", points, point_mask):
+    """The window encoder's outputs; under ``cfg.remat``, while gradients
+    are taken, its activations are recomputed in the backward pass instead
+    of kept. The recompute leaves the BatchNorm running statistics alone
+    (``recomputing``), so the step's numbers are the plain step's. The
+    encoder draws nothing at random, so no RNG state is kept."""
+    if not (encoder.cfg.remat and torch.is_grad_enabled()):
+        return encoder(points, point_mask)
+    return checkpoint(encoder, points, point_mask, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+
+
+def geom_summary(points: torch.Tensor, point_mask: Optional[torch.Tensor],
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """[B, W, 2E]: each window's mean (over real points) ‖ max (0 for a fully
     padded window) of the eigenfeature columns 9.. of ``points [B, W, N, F]``,
-    in float32 (float64 for a float64 model)."""
-    g = at_least_float32(points[..., 9:])
+    in ``dtype`` (a compute dtype), else float32 (float64 for a float64
+    model)."""
+    g = points[..., 9:]
+    g = g.to(dtype) if dtype is not None else at_least_float32(g)
     if point_mask is not None:
         m = point_mask[..., None].to(g.dtype)
         mean = (g * m).sum(-2) / m.sum(-2).clamp_min(1.0)
@@ -431,10 +460,11 @@ class AMPNetClassifier(nn.Module):
         self.context, ctx_dim = _make_context(cfg, g, use_pos_enc=False)
         self.head = ClassificationHead(ctx_dim, num_windows, num_out, g)
         _set_bn_momentum(self, cfg.bn_momentum)
+        set_compute_dtype(self, compute_dtype(cfg.dtype))
 
     def forward(self, points, centroids=None, window_pad_mask=None, point_mask=None,
                 generator: Optional[torch.Generator] = None):
-        _, global_feats, t_feat = self.encoder(points, point_mask)
+        _, global_feats, t_feat = encode(self.encoder, points, point_mask)
         ctx, attn_weights = _run_context(self.context, global_feats, None, window_pad_mask,
                                          generator)
         return self.head(ctx), t_feat, attn_weights

@@ -9,7 +9,10 @@ for a fully padded key row where this one (like the JAX module) pads with
 out-projection with bias; returns the weights averaged over heads. In
 training, dropout (``attn_drop``) acts on the softmax weights before the value
 product, and the averaged weights returned are the post-dropout ones, as in
-the JAX module.
+the JAX module. Under a bfloat16 compute dtype the projections run in
+bfloat16, the scores and the softmax in float32 (the JAX einsum's
+``preferred_element_type``), and the weights go back to bfloat16 for the
+value product.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ampnet_tpu_torch.models.layers import dropout, make_linear
+from ampnet_tpu_torch.models.layers import at_least_float32, dropout, make_linear
 
 
 class WindowMHA(nn.Module):
@@ -41,12 +44,13 @@ class WindowMHA(nn.Module):
         generator: Optional[torch.Generator] = None,  # dropout masks in training
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         rate = self.drop_rate if self.training else 0.0
-        return mha_forward(
-            tokens, key_padding_mask, self.num_heads,
-            self.in_proj.weight.t(), self.in_proj.bias,
-            self.out_proj.weight.t(), self.out_proj.bias,
-            drop_rate=rate, generator=generator,
-        )
+        params = (self.in_proj.weight.t(), self.in_proj.bias,
+                  self.out_proj.weight.t(), self.out_proj.bias)
+        dt = self.in_proj.compute_dtype
+        if dt is not None:
+            tokens, params = tokens.to(dt), tuple(p.to(dt) for p in params)
+        return mha_forward(tokens, key_padding_mask, self.num_heads, *params,
+                           drop_rate=rate, generator=generator)
 
 
 def mha_forward(tokens, key_padding_mask, num_heads, w_in, b_in, w_out, b_out,
@@ -64,10 +68,10 @@ def mha_forward(tokens, key_padding_mask, num_heads, w_in, b_in, w_out, b_out,
         return t.reshape(B, W, H, D).transpose(1, 2)  # [B, H, W, D]
 
     q, k, v = heads(q), heads(k), heads(v)
-    scores = (q @ k.transpose(-1, -2)) / math.sqrt(D)
+    scores = (at_least_float32(q) @ at_least_float32(k).transpose(-1, -2)) / math.sqrt(D)
     if key_padding_mask is not None:
         neg = torch.finfo(torch.float32).min
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], neg)
     weights = dropout(torch.softmax(scores, dim=-1), drop_rate, generator)
-    out = (weights @ v).transpose(1, 2).reshape(B, W, E)
+    out = (weights.to(v.dtype) @ v).transpose(1, 2).reshape(B, W, E)
     return out @ w_out + b_out, weights.mean(dim=1)

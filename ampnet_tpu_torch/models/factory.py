@@ -9,9 +9,10 @@ from typing import Optional
 
 import torch
 
-from ampnet_tpu_torch.core.config import AMPNetConfig
+from ampnet_tpu_torch.core.config import AMPNetConfig, compute_dtype
 from ampnet_tpu_torch.models.adapter import SingleWindowClassifier, SingleWindowSegmenter
 from ampnet_tpu_torch.models.amp import AMPNetClassifier, AMPNetSegmenter
+from ampnet_tpu_torch.models.layers import set_compute_dtype
 from ampnet_tpu_torch.models.pointnet2 import PointNet2Segmenter
 
 ARCHS = ("attention", "gru", "baseline", "classic", "pointnet2")
@@ -26,17 +27,25 @@ def build_model(cfg: AMPNetConfig, arch: str = "attention", task: str = "segment
     'pointnet2' (segmentation only). Every model reads ``num_features +
     extra_features`` input columns (the geometric columns follow the 9 model
     features). Windowed classifiers size their window mix to
-    ``cfg.data.max_windows``. Weights are drawn from ``generator``."""
+    ``cfg.data.max_windows``. Weights are drawn from ``generator``; every
+    dense layer computes in ``cfg.model.dtype`` (bfloat16 or the input's)."""
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; expected one of {ARCHS}")
     if task not in TASKS:
         raise ValueError(f"unknown task {task!r}; expected one of {TASKS}")
     mcfg, nf = cfg.model, cfg.data.num_features + cfg.data.extra_features
+    model = _build(mcfg, nf, cfg.data.max_windows, arch, task, num_cls_out, generator)
+    set_compute_dtype(model, compute_dtype(mcfg.dtype))
+    return model
+
+
+def _build(mcfg, nf: int, max_windows: int, arch: str, task: str, num_cls_out: int,
+           generator: Optional[torch.Generator]):
     if arch in WINDOWED:
         mcfg = dataclasses.replace(mcfg, context=arch)
         if task == "segmentation":
             return AMPNetSegmenter(mcfg, num_features=nf, generator=generator)
-        return AMPNetClassifier(mcfg, num_out=num_cls_out, num_windows=cfg.data.max_windows,
+        return AMPNetClassifier(mcfg, num_out=num_cls_out, num_windows=max_windows,
                                 num_features=nf, generator=generator)
     if arch == "pointnet2":
         if task != "segmentation":

@@ -11,15 +11,24 @@
   Flax module follows ``use_running_average=not train``: batch statistics
   (updating the running ones) in training, running statistics in eval, and
   per-window statistics in both under ``norm_mode='window'``.
+* A compute dtype (``ModelConfig.dtype = "bfloat16"``; ``set_compute_dtype``)
+  makes every ``Dense`` cast its input, weight and bias to bfloat16 and
+  return bfloat16, over float32 parameters, as Flax's ``nn.Dense(dtype=...)``
+  does: autograd returns float32 gradients through the casts. The other ops
+  follow their input's dtype, and a product of a float32 and a bfloat16
+  tensor is taken in float32 (``matmul_promoted``), as JAX promotes it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 from ampnet_tpu_torch.parallel.mesh import all_reduce_sum
 
@@ -37,9 +46,38 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
         weight.copy_(w)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` with an optional compute dtype: input, weight and bias
+    are cast to ``compute_dtype`` and the product is returned in it; None
+    computes in the input's dtype, as ``nn.Linear`` does."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Every ``Dense`` of ``model`` computes in ``dtype`` (None: the input's)."""
+    for mod in model.modules():
+        if isinstance(mod, Dense):
+            mod.compute_dtype = dtype
+
+
+def matmul_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype of the two (float32 for float32 and
+    bfloat16), as ``jnp.einsum`` promotes mixed operands."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def make_linear(cin: int, cout: int, bias: bool, generator: torch.Generator,
-                zero: bool = False) -> nn.Linear:
-    lin = nn.Linear(cin, cout, bias=bias)
+                zero: bool = False) -> Dense:
+    lin = Dense(cin, cout, bias=bias)
     with torch.no_grad():
         if zero:
             lin.weight.zero_()
@@ -57,6 +95,22 @@ def at_least_float32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Within the block (the backward pass's recompute of a checkpointed
+    region, ``models/amp.py``), training BatchNorms leave their running
+    statistics as they are: the forward pass has updated them once."""
+    before = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = before
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Flax ``nn.Dropout`` in training: keep each entry with probability
     ``1 - rate`` and scale it by ``1 / (1 - rate)``, drawing the mask from
@@ -68,6 +122,15 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     keep_prob = 1.0 - rate
     keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def divide_as_by_a_number(t: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``t / d`` for a one-element tensor ``d``, rounded as torch rounds
+    ``t / float(d)``: on the card a Python divisor becomes a multiplication
+    by its reciprocal, on the CPU a division. The group path's BatchNorm
+    divides by a summed count this way, so at one rank it equals the plain
+    path bit for bit."""
+    return t * (1.0 / d) if t.is_cuda else t / d
 
 
 class MaskedBatchNorm(nn.Module):
@@ -84,11 +147,12 @@ class MaskedBatchNorm(nn.Module):
     both modes and keeps no running statistics, as the JAX module does.
 
     Under a process group (``dp``, set by ``parallel/mesh.py::sync_batch_norm``)
-    the training statistics are the global batch's: Σx, Σx² and the mask
-    count are summed over the ranks, differentiably, before the mean and
-    variance are formed (without a mask the count is the rows times the
-    ranks: every rank holds as many rows). Without a group, and at one rank,
-    the same sums divide in the same order."""
+    the training statistics are the global batch's: Σx, Σx² and the count
+    (of the mask, or of the rows) are summed over the ranks, differentiably,
+    before the mean and variance are formed: ranks may hold unequal shares of
+    a batch, none at all included. Without a group, and at one rank, the
+    same sums divide in the same order. Inside ``recomputing()`` the running
+    statistics are not updated again."""
 
     def __init__(self, features: int, eps: float = 1e-5, norm_mode: str = "batch",
                  momentum: float = 0.9):
@@ -119,10 +183,15 @@ class MaskedBatchNorm(nn.Module):
             c = x.shape[-1]
             if mask is None:
                 s1, s2 = xf.sum(dim=dims), xf.square().sum(dim=dims)
-                denom = float(x.numel() // c)
-                if self.dp is not None:
-                    s1, s2 = all_reduce_sum(torch.cat([s1, s2]), self.dp).split(c)
-                    denom *= self.dp.world
+                rows = float(x.numel() // c)
+                if self.dp is None:
+                    mean, msq = s1 / rows, s2 / rows
+                else:
+                    rows = torch.full((1,), rows, dtype=xf.dtype, device=xf.device)
+                    s1, s2, rows = all_reduce_sum(torch.cat([s1, s2, rows]),
+                                                  self.dp).split([c, c, 1])
+                    mean, msq = divide_as_by_a_number(s1, rows), divide_as_by_a_number(s2, rows)
+                var = msq - mean.square()
             else:
                 m = mask.to(xf.dtype)[..., None]
                 s1, s2 = (xf * m).sum(dim=dims), (xf.square() * m).sum(dim=dims)
@@ -131,15 +200,19 @@ class MaskedBatchNorm(nn.Module):
                     s1, s2, count = all_reduce_sum(torch.cat([s1, s2, count]),
                                                    self.dp).split([c, c, 1])
                 denom = count.clamp_min(1.0)
-            mean = s1 / denom
-            var = s2 / denom - mean.square()
-            with torch.no_grad():
-                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
-                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+                mean = s1 / denom
+                var = s2 / denom - mean.square()
+            if not getattr(_recompute, "on", False):
+                self._update_running(mean, var)
         else:
             mean, var = self.mean, self.var
         y = (x - mean.to(x.dtype)) * torch.rsqrt(var + self.eps).to(x.dtype)
         return y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
 
 
 class PointMLP(nn.Module):

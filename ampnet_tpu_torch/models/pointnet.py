@@ -29,6 +29,7 @@ from ampnet_tpu_torch.models.layers import (
     default_generator,
     dropout,
     make_linear,
+    matmul_promoted,
     masked_max_pool,
 )
 
@@ -51,7 +52,7 @@ class _PointNetEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         d = self.point_dim
-        coords = x[..., :d] @ self.input_tnet(x[..., :d], mask)
+        coords = matmul_promoted(x[..., :d], self.input_tnet(x[..., :d], mask))
         h = self.mlp_a(torch.cat([coords, x[..., d:]], dim=-1), mask)
         t_feat = self.feature_tnet(h, mask)
         local = h @ t_feat

@@ -124,7 +124,9 @@ class FeaturePropagation(_MLP):
             d2, idx = three_nn(_sqdist(xyz_fine, xyz_coarse))  # [B, N, 3]
             w = 1.0 / d2.clamp_min(1e-8)
             w = w / w.sum(dim=-1, keepdim=True)
-            interp = torch.einsum("bnk,bnkc->bnc", w, gather_points(feats_coarse, idx))
+            nbrs = gather_points(feats_coarse, idx)  # [B, N, 3, C]
+            dt = torch.promote_types(w.dtype, nbrs.dtype)  # float32 under bfloat16 nbrs
+            interp = torch.einsum("bnk,bnkc->bnc", w.to(dt), nbrs.to(dt))
         h = interp if feats_fine is None else torch.cat([feats_fine, interp], -1)
         return self.run(h)
 

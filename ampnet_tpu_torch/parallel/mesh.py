@@ -25,9 +25,11 @@ are reduced explicitly:
   same numbers and takes the same best-checkpoint and early-stop decisions.
 
 Rows: under ``grad_accum = k`` the JAX step splits the GLOBAL batch into k
-contiguous micro-batches, each sharded over the devices, so rank r holds
-``global.reshape(k, world, mb / world, ...)[:, r]`` (``rank_rows``). Every
-rank holds the same number of rows (the BatchNorm counts rely on it).
+contiguous micro-batches, each sharded over the devices, so rank r holds its
+contiguous share of every micro-batch (``rank_rows``). The shares may be
+unequal, as a micro-batch of 3 on 2 ranks is, and a rank may hold no row:
+every sum above is global, the BatchNorm's row count included, so each rank
+still joins every collective, with zero sums where it holds nothing.
 
 Random draws: each rank draws augmentation and dropout for its own rows from
 a generator seeded by ``(seed, step, rank)`` (``TrainState.step_generator``).
@@ -175,12 +177,16 @@ def sync_batch_norm(model: torch.nn.Module, dp: Optional[DataParallel]):
 
 def rank_rows(n: int, world: int, rank: int, grad_accum: int = 1) -> np.ndarray:
     """The rows of an ``n``-row global batch that ``rank`` holds: of each of
-    the ``grad_accum`` contiguous micro-batches, the rank's contiguous share."""
+    the ``grad_accum`` contiguous micro-batches, the rank's contiguous share,
+    as ``np.array_split`` cuts it (the first ``mb % world`` ranks hold one
+    row more; a rank may hold none)."""
     k = int(grad_accum)
-    if n % (world * k):
-        raise ValueError(f"a batch of {n} clouds does not split into {k} micro-batch(es) "
-                         f"of equal shares for {world} rank(s)")
-    return np.arange(n).reshape(k, world, n // (k * world))[:, rank].reshape(-1)
+    if n % k:
+        raise ValueError(f"a batch of {n} clouds does not split into {k} equal micro-batches")
+    mb = n // k
+    lo = rank * (mb // world) + min(rank, mb % world)
+    hi = lo + mb // world + (rank < mb % world)
+    return (np.arange(k)[:, None] * mb + np.arange(lo, hi)).reshape(-1)
 
 
 def shard_batch(batch: Dict, dp: DataParallel, grad_accum: int = 1) -> Dict:

@@ -5,7 +5,12 @@
   stay on the device; each epoch fetches them once and derives per-class IoU
   and accuracy on the host (no ``.item()`` inside the step loop).
 * A GPU-resident dataset (``DeviceCachedBatcher``) runs through the epoch
-  loop of ``train/epoch.py``; a host batcher runs step by step.
+  loop of ``train/epoch.py`` (``epoch_dispatch='auto'``); a host batcher,
+  or any batcher under ``epoch_dispatch='off'``, runs step by step. Both
+  take the same steps on the same batches.
+* Epoch e draws its order from ``seed + e + 1``: the JAX trainer peeks one
+  batch of its train data at construction, which spends epoch 0's draw, and
+  the port spends it too, so both packages train on the same orders.
 * Best-val-loss checkpointing (best train loss without a val split) and
   ``epochs_since_improvement`` as in the reference (``:314-330``), plateau
   ``lr_scale`` decay and early stop; ``resume`` restores params, Adam state
@@ -111,13 +116,18 @@ class Trainer:
         step_fns: Optional[Tuple[Callable, Callable]] = None,
         teacher=None,
         dp=None,
+        epoch_dispatch: str = "auto",
     ):
+        if epoch_dispatch not in ("auto", "off"):
+            raise ValueError(f"epoch_dispatch {epoch_dispatch!r} (want auto/off)")
+        self.epoch_dispatch = epoch_dispatch
         self.dp = dp
         self.writer = dp is None or dp.rank == 0
         self.device = dp.device if dp is not None else resolve_device(device)
         self.cfg = cfg
         self.train_data = train_data
         self.val_data = val_data
+        train_data.epoch += 1  # the JAX trainer's peek: next(iter(train_data))
         self.workdir = workdir
         self.name = name
         self.task = task
@@ -157,7 +167,7 @@ class Trainer:
         """Queue one epoch's steps; the metrics come back stacked, on the device."""
         # under a group, the rank's rows: of each micro-batch when training
         accum = self.cfg.train.grad_accum if train else 1
-        if isinstance(data, DeviceCachedBatcher):
+        if isinstance(data, DeviceCachedBatcher) and self.epoch_dispatch == "auto":
             idxs, pads, _ = data.epoch_index_matrix(self.dp, accum)
             if idxs.shape[0] == 0:
                 return {}
@@ -222,7 +232,7 @@ class Trainer:
             td = self.train_data
             n_clouds = len(td) * td.batch_size
             if not td.drop_last:  # the last batch may be short: count real clouds
-                n_clouds = min(n_clouds, len(getattr(td, "names", None) or td.dataset))
+                n_clouds = min(n_clouds, len(td._base_indices()))
             tm["epoch_seconds"] = wall
             tm["windows_per_sec"] = n_clouds * td.max_windows / max(wall, 1e-9)
             self.log_train.scalars(tm, epoch)

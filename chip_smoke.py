@@ -149,7 +149,23 @@ the run (non-zero exit, no result line) when it does not hold:
    1 on one card; (e) the window-axis forward on 1 x 2 and 2 x 1 grids of
    cuda:0 against the single forward to 2e-5. No kernel launches in (a), (b)
    and (e). The ``parallel:`` line prints every number beside the card;
-12. results -- one ``{"kernels": [...]}`` line, then as the last line
+12. training options -- at full width on phase 6's data (``options_phase``):
+   (a) a bfloat16 step against the float32 step on one 32 x 9 x 2048 batch,
+   the loss within the CPU test's bfloat16 floor (5.1e-3 of the float32
+   loss), step ms, windows/s and peak GiB of each, and ``train --dtype
+   bfloat16`` for 1 epoch; (b) the remat step against the plain step (loss,
+   gradients, running statistics, no further apart than the plain step from
+   itself), each timed; (c) ``train --oversample_factor 3
+   --oversample_classes auto --seg_weighing EFS``: printed weights and
+   counts equal the port's functions on the host, ``len(repeated pool) //
+   32`` steps; (d) ``--epoch_dispatch off`` against ``auto``: the same epoch
+   metrics; (e) the host batcher with prefetch 2 and 2 forked workers
+   against prefetch 0: the same batches, and an epoch of each through the
+   trainer; (f) ``test --backend fused`` (4 ``fused_mlp_chain`` launches a
+   bucket forward) and ``--backend xla`` (bfloat16 logits, no launch) of
+   (a)'s checkpoint on phase 7's clouds. (a)-(e) launch neither kernel. The
+   ``train_options:`` line prints every number beside the card;
+13. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -1533,7 +1549,7 @@ def eval_cli(run, argv):
         launches = {name: fn.launches for name, fn in wrappers.items()}  # ... and ends here
     if rc != 0:
         raise RuntimeError(f"{' '.join(argv[:2])} exited {rc}: {buf.getvalue()[-2000:]}")
-    for name, per in {**EVAL_RUNS, **TILE_RUNS, **GEOM_RUNS}[run].items():
+    for name, per in {**EVAL_RUNS, **TILE_RUNS, **GEOM_RUNS, **OPTION_RUNS}[run].items():
         if launches[name] != per * rec["forwards"]:
             raise RuntimeError(f"{run}: {name} launched {launches[name]} times for "
                                f"{rec['forwards']} bucket forwards; want {per} each")
@@ -2988,6 +3004,250 @@ def parallel_phase(model, cfg, dev, card, work) -> dict:
     return launches
 
 
+# phase 12 (training options). The CPU test's bfloat16 floor of the loss:
+# JAX's bfloat16 step against its float32 step, 9.2e-3 of a 1.81 loss
+# (tests/test_torch_train_options.py), as a share of the float32 loss
+BF16_LOSS_FLOOR_REL = 5.1e-3
+OPTION_RUNS = {"options_test_fused": LAUNCHES_PER_FORWARD["fused"],
+               "options_test_xla": {"fused_mlp_chain": 0, "quantized_mlp_chain": 0}}
+
+
+def options_steps(cfgs, batch, dev) -> dict:
+    """One seeded step of each config on ``batch`` (augmentation off), from
+    the same weights, then 2 warm and 3 timed steps: {name: loss, the
+    gradients and buffers of the first step, step ms (host clock ending in a
+    sync), windows/s, peak GiB}. No kernel launches."""
+    from ampnet_tpu_torch.train.state import create_train_state
+    from ampnet_tpu_torch.train.step import make_step_fns
+
+    out = {}
+    for name, cfg in cfgs.items():
+        with no_kernel_launches(f"options_{name}"):
+            state = create_train_state(cfg, seeded_model(cfg).train(), 1, dev)
+            step = make_step_fns(cfg, augment=False)[0]
+            gc_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            loss = float(step(state, batch)["loss"])
+            first = {"loss": loss,
+                     "grads": {n: p.grad.detach().clone() for n, p in
+                               state.model.named_parameters()},
+                     "buffers": {n: b.detach().clone() for n, b in state.model.named_buffers()}}
+            for _ in range(2):
+                step(state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+        b, w = batch["points"].shape[:2]
+        out[name] = {**first, "step_ms": ms, "windows_per_sec": b * w / (ms / 1e3),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del state, step
+    return out
+
+
+def largest_gap(a: dict, b: dict) -> float:
+    """The largest |a − b| over every tensor of two {name: tensor} maps."""
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def options_cli(run, data_dir, out_dir, dev, flags) -> tuple:
+    """``train --epochs 1`` at batch TRAIN_BATCH on phase 6's data with
+    ``flags``, 0 kernel launches → (stderr, the epoch's CSV row, the printed
+    summary, checkpoint directory, wall s)."""
+    stdout, err, _, wall = family_cli(run, [
+        "train", data_dir, "--path_list_files", data_dir, "--out_path", out_dir,
+        "--device", str(dev), "--epochs", "1", "--batch_size", str(TRAIN_BATCH),
+        "--seed", str(SEED), *flags])
+    rows = train_csv_rows(out_dir)
+    return (err, rows[0], json.loads(stdout[stdout.index("{"): stdout.rindex("}") + 1]),
+            os.path.join(out_dir, "checkpoints", "attention_segmentation_best"), wall)
+
+
+def host_batches(batcher) -> tuple:
+    """One epoch of a host batcher: (the batches, host seconds)."""
+    t0 = time.perf_counter()
+    batches = list(batcher)
+    return batches, time.perf_counter() - t0
+
+
+def options_phase(dev, card, work) -> dict:
+    """Phase 12: the training options at full width (attention, 256-d, 8
+    heads, 32 x 9 x 2048, phase 6's data). (a) a bfloat16 step against the
+    float32 step on one batch (the loss within the CPU test's bfloat16 floor
+    of the float32 loss), each timed, and ``train --dtype bfloat16`` for 1
+    epoch (its checkpoint records the dtype); (b) the remat step against the
+    plain step (loss, gradients, running statistics), each timed; (c)
+    ``train --oversample_factor 3 --oversample_classes auto --seg_weighing
+    EFS``: the printed weights and oversampled cloud count equal the port's
+    functions on the host, the epoch's steps ``len(repeated pool) //
+    batch``; (d) ``--epoch_dispatch off`` against ``auto``, 1 epoch: the same
+    epoch metrics; (e) ``--device_cache off`` with prefetch 2 and 2 workers
+    against prefetch 0: the same batches in the same order, and each epoch's
+    seconds through the trainer; (f) ``test --backend fused`` and ``--backend
+    xla`` of (a)'s checkpoint on phase 7's clouds: 4 ``fused_mlp_chain``
+    launches per bucket forward under fused, none under xla, where the
+    restored model computes in bfloat16. (a)-(e) launch neither kernel.
+    Returns (f)'s launches by run."""
+    from ampnet_tpu_torch.cli.main import rare_class_repeats, seg_class_weights
+    from ampnet_tpu_torch.core.checkpoint import load_model, read_meta, read_payload
+    from ampnet_tpu_torch.core.config import AMPNetConfig, ModelConfig, TrainConfig
+    from ampnet_tpu_torch.data.datasets import WindowedCloudDataset
+    from ampnet_tpu_torch.data.pipeline import PaddedBatcher
+    from ampnet_tpu_torch.models.backends import make_forward
+    from ampnet_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(work, "data")  # phase 6's
+    names = [f"cloud{i:03d}.pkl" for i in range(TRAIN_CLOUDS)]
+    out = {"card": card}
+    batch = step_batch(data_dir, names, dev, batch=TRAIN_BATCH)
+
+    # (a) bfloat16 against float32
+    steps = options_steps({"float32": AMPNetConfig(model=ModelConfig(dropout=0.0)),
+                           "bfloat16": AMPNetConfig(model=ModelConfig(dropout=0.0,
+                                                                      dtype="bfloat16"))},
+                          batch, dev)
+    f32, bf16 = steps["float32"], steps["bfloat16"]
+    rel = abs(bf16["loss"] - f32["loss"]) / abs(f32["loss"])
+    out["a_bf16"] = {k: {m: v[m] for m in ("loss", "step_ms", "windows_per_sec", "peak_gib")}
+                     for k, v in steps.items()}
+    out["a_bf16"]["loss_rel_gap"] = rel
+    if not rel <= BF16_LOSS_FLOOR_REL:
+        raise RuntimeError(f"(a) the bfloat16 loss is {rel:.3g} of the float32 loss away; "
+                           f"the CPU test's floor is {BF16_LOSS_FLOOR_REL}")
+    del steps
+    err, row, _, bf16_ckpt, wall = options_cli("options_train_bf16", data_dir,
+                                               os.path.join(work, "opt_bf16"), dev,
+                                               ["--dtype", "bfloat16"])
+    if read_meta(bf16_ckpt)["config"]["model"]["dtype"] != "bfloat16":
+        raise RuntimeError("(a) the bfloat16 checkpoint does not record its dtype")
+    out["a_bf16"]["train_cli"] = {"loss": row["loss"], "epoch_seconds": row["epoch_seconds"],
+                                  "wall_s": wall}
+    _say("  (a) " + json.dumps(out["a_bf16"]))
+
+    # (b) remat against the plain step, and the plain step against itself
+    steps = options_steps({"plain": AMPNetConfig(model=ModelConfig(dropout=0.0)),
+                           "plain_again": AMPNetConfig(model=ModelConfig(dropout=0.0)),
+                           "remat": AMPNetConfig(model=ModelConfig(dropout=0.0, remat=True))},
+                          batch, dev)
+    plain, again, remat = steps["plain"], steps["plain_again"], steps["remat"]
+    gaps = {k: (largest_gap(remat[k], plain[k]), largest_gap(again[k], plain[k]))
+            for k in ("grads", "buffers")}
+    out["b_remat"] = {
+        "loss": {"plain": plain["loss"], "remat": remat["loss"]},
+        "grad_gap": gaps["grads"][0], "buffer_gap": gaps["buffers"][0],
+        "plain_to_itself": {"grads": gaps["grads"][1], "buffers": gaps["buffers"][1]},
+        **{f"{k}_{m}": steps[k][m] for k in ("plain", "remat")
+           for m in ("step_ms", "windows_per_sec", "peak_gib")}}
+    _say("  (b) " + json.dumps(out["b_remat"]))
+    if remat["loss"] != plain["loss"] or any(r > p for r, p in gaps.values()):
+        raise RuntimeError("(b) the remat step differs from the plain step by more than the "
+                           "plain step differs from itself")
+    del steps, plain, again, remat
+    gc_cuda()
+
+    # (c) oversampling and data-driven weights, against the port's functions
+    ds = WindowedCloudDataset(data_dir, names)
+    reps, rare, n_over = rare_class_repeats(ds, 3, "auto", 5)
+    cw, counts = seg_class_weights(ds, "EFS", 5, TrainConfig().beta)
+    err, row, _, ckpt, wall = options_cli(
+        "options_train_oversample", data_dir, os.path.join(work, "opt_over"), dev,
+        ["--oversample_factor", "3", "--oversample_classes", "auto", "--seg_weighing", "EFS"])
+    pool = int(reps.sum()) if reps is not None else len(names)
+    want_over = (f"oversampling x3: {n_over}/{len(names)} train clouds contain rare classes "
+                 f"{rare}" if reps is not None else "oversampling: no rare classes found")
+    want_w = f"seg class weights (EFS, counts {counts.tolist()}): {[round(float(x), 5) for x in cw]}"
+    steps_run = int(read_payload(ckpt)["step"])
+    out["c_oversample"] = {"rare_classes": rare, "oversampled_clouds": n_over,
+                           "pool": pool, "steps": steps_run, "weights": [float(x) for x in cw],
+                           "counts": counts.tolist(), "loss": row["loss"],
+                           "epoch_seconds": row["epoch_seconds"], "wall_s": wall}
+    _say("  (c) " + json.dumps(out["c_oversample"]))
+    if want_over not in err or want_w not in err or steps_run != pool // TRAIN_BATCH:
+        raise RuntimeError(f"(c) printed {err[-1500:]!r}; want {want_over!r}, {want_w!r} and "
+                           f"{pool // TRAIN_BATCH} steps (ran {steps_run})")
+
+    # (d) --epoch_dispatch off against auto
+    epochs = {}
+    for mode in ("auto", "off"):
+        _, row, summary, _, wall = options_cli(f"options_dispatch_{mode}", data_dir,
+                                               os.path.join(work, f"opt_{mode}"), dev,
+                                               ["--epoch_dispatch", mode])
+        epochs[mode] = (row, summary, wall)
+    keys = [k for k in epochs["auto"][0]  # the epoch's metrics, not its clocks
+            if k not in ("epoch_seconds", "windows_per_sec", "total_hours")]
+    gap = max(max(abs(epochs["auto"][0][k] - epochs["off"][0][k]) for k in keys
+                  if np.isfinite(epochs["auto"][0][k])),
+              max(abs(epochs["auto"][1][k] - epochs["off"][1][k]) for k in epochs["auto"][1]))
+    out["d_dispatch"] = {mode: {"loss": r["loss"], "val_loss": sm["loss"],
+                                "epoch_seconds": r["epoch_seconds"], "wall_s": w}
+                         for mode, (r, sm, w) in epochs.items()}
+    out["d_dispatch"]["largest_metric_gap"] = gap
+    _say("  (d) " + json.dumps(out["d_dispatch"]))
+    if not gap <= 1e-5:
+        raise RuntimeError(f"(d) epoch_dispatch off and auto part by {gap:.3g}")
+
+    # (e) the host batcher: prefetch 2 and 2 forked workers against synchronous
+    cfg = AMPNetConfig(train=TrainConfig(batch_size=TRAIN_BATCH, seed=SEED))
+    kw = dict(n_points=TRAIN_POINTS, max_windows=TRAIN_WINDOWS, seed=SEED)
+    sync = PaddedBatcher(ds, TRAIN_BATCH, prefetch=0, **kw)
+    pooled = PaddedBatcher(ds, TRAIN_BATCH, prefetch=2, workers=2, **kw)
+    try:
+        (want, t_sync), (got, t_pooled) = host_batches(sync), host_batches(pooled)
+        same = len(want) == len(got) and all(
+            a["names"] == b["names"] and all(np.array_equal(a[k], b[k])
+                                             for k in ("points", "labels", "centroids"))
+            for a, b in zip(want, got))
+        seconds = {}
+        for name, batcher in (("prefetch0", sync), ("prefetch2_workers2", pooled)):
+            with no_kernel_launches(f"options_host_{name}"), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                trainer = Trainer(cfg, seeded_model(cfg).train(), batcher, None,
+                                  os.path.join(work, f"opt_{name}"), device=dev)
+                hist = trainer.fit(1)
+                trainer.close()
+            seconds[name] = {"epoch_seconds": hist["train"][0]["epoch_seconds"],
+                             "loss": hist["train"][0]["loss"]}
+    finally:
+        pooled.close()
+    out["e_host_batcher"] = {"same_batches": same, "batches": len(got),
+                             "host_epoch_s": {"prefetch0": t_sync,
+                                              "prefetch2_workers2": t_pooled},
+                             "trainer": seconds}
+    _say("  (e) " + json.dumps(out["e_host_batcher"]))
+    loss_gap = abs(seconds["prefetch0"]["loss"] - seconds["prefetch2_workers2"]["loss"])
+    if not same or loss_gap > 1e-5 * abs(seconds["prefetch0"]["loss"]):
+        raise RuntimeError("(e) prefetch 2 and workers 2 changed the batches or the epoch")
+
+    # (f) the bfloat16 checkpoint under fused and xla
+    bf16_cfg, model = load_model(bf16_ckpt, dev)
+    probe = step_batch(data_dir, names, dev, batch=1)
+    pad = (probe["labels"] == -1).all(-1)
+    with no_kernel_launches("options_xla_dtype"):
+        logits = make_forward(model, bf16_cfg, "xla", dev)(
+            probe["points"], probe["centroids"], pad)
+    if logits.dtype != torch.bfloat16:
+        raise RuntimeError(f"(f) the bfloat16 checkpoint evaluates in {logits.dtype} under xla")
+    del model
+    eval_dir = os.path.join(work, "eval")  # phase 7's clouds
+    launches = {}
+    out["f_test"] = {}
+    for backend in ("fused", "xla"):
+        run = f"options_test_{backend}"
+        summary, counts, rec, wall = eval_cli(run, [
+            "test", eval_dir, "--path_list_files", eval_dir, "--model_checkpoint", bf16_ckpt,
+            "--backend", backend, "--device", str(dev), "--out_path",
+            os.path.join(work, run)])
+        launches[run] = counts
+        out["f_test"][backend] = {"miou": summary["miou"], "wall_s": wall,
+                                  "bucket_forwards": rec["forwards"], "launches": counts}
+    out["phase_s"] = time.perf_counter() - t_phase
+    _say("train_options: " + json.dumps(out))
+    return launches
+
+
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, and the host
     solver by ``g++``, all started together, and loaded."""
@@ -3019,50 +3279,54 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     _say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    _say("[1/12] card")
+    _say("[1/13] card")
     card = card_line()
     _say(card)
 
-    _say("[2/12] build")
+    _say("[2/13] build")
     build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
-    _say("[3/12] kernels against their plain versions")
+    _say("[3/13] kernels against their plain versions")
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/12] model: fused and int8 against the module forward")
+    _say("[4/13] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
-    _say("[5/12] serve")
+    _say("[5/13] serve")
     runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
     cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as work:
-        _say("[6/12] train")
+        _say("[6/13] train")
         train_launches, ckpt = train_phase(dev, card, work)
 
-        _say("[7/12] evaluate")
+        _say("[7/13] evaluate")
         eval_launches = evaluate_phase(ckpt, dev, card, work)
 
-        _say("[8/12] tiles: host data stages, whole-tile infer, demo")
+        _say("[8/13] tiles: host data stages, whole-tile infer, demo")
         tile_launches, tiles_data = tiles_phase(ckpt, dev, card, work)
         eval_launches.update(tile_launches)
 
-        _say("[9/12] families: gru, classification, baseline, classic, pointnet2")
+        _say("[9/13] families: gru, classification, baseline, classic, pointnet2")
         families_phase(ckpt, dev, card, work)
 
-        _say("[10/12] geometry: eigenfeature columns, edge block, geom tokens, distillation")
+        _say("[10/13] geometry: eigenfeature columns, edge block, geom tokens, distillation")
         geom_launches, geom_rows = geometry_phase(os.path.join(work, "tiles"), tiles_data,
                                                      dev, card, work)
 
-        _say("[11/12] parallel: sharded steps, two ranks, sharded serving, window axis")
+        _say("[11/13] parallel: sharded steps, two ranks, sharded serving, window axis")
         par_launches = parallel_phase(model, cfg, dev, card, work)
 
-    _say("[12/12] results")
+        _say("[12/13] training options: bf16, remat, oversampling, weights, dispatch, "
+             "host batcher")
+        option_launches = options_phase(dev, card, work)
+
+    _say("[13/13] results")
     # launches only where the serving runs counted them: each kernel in both
     # runs, and each serving chain once per bucket forward that ran it (its M
     # there is 18 x clouds in the bucket); the other cases are shapes the
@@ -3089,6 +3353,11 @@ def main() -> int:
                 total["launches_by_run"][f"parallel_serve_{backend}"] = counts[name]
         # phase 11 checked 0 on the sharded steps (both ranks) and the window axis
         total["launches_by_run"]["parallel_train_window_axis"] = 0
+        for run, counts in option_launches.items():  # phase 12 (f): test of the bf16 checkpoint
+            if OPTION_RUNS[run][name]:
+                total["launches_by_run"][run] = counts[name]
+        # phase 12 checked 0 on its training runs (a)-(e) and under xla
+        total["launches_by_run"]["options_train"] = 0
         total["launches"] = sum(total["launches_by_run"].values())
     tnets = ("serve:input_tnet", "serve:feature_tnet")  # the T-Nets run under both backends
     for row in fused_cases:

@@ -308,17 +308,46 @@ def test_trainer_train_and_serve_default_to_the_card(tmp_path, small_cfg, monkey
         main(["train", str(tmp_path), "--path_list_files", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flags, item", [
-    # data parallelism needs as many cards as ranks: none here
-    (["--num_devices", "2", "--device", "cuda"], "needs 2 CUDA devices; 0 visible"),
-    (["--dtype", "bfloat16"], "item 7"),
-    (["--oversample_factor", "2"], "item 7"),
-    (["--seg_weighing", "INS"], "item 7"),
-    (["--grad_accum", "3"], "divisible"),
-])
-def test_train_refuses_options_this_slice_does_not_cover(flags, item, capsys):
-    assert main(["train", "data", "--batch_size", "4", "--device", "cpu", *flags]) == 1
-    assert item in capsys.readouterr().err
+# the training options as the JAX command line takes them: (flags, exit code
+# or the error raised, what it says, whether the JAX command is run too: it
+# is where it stops before its first step)
+JAX_TRAIN_OPTIONS = [
+    # data parallelism needs as many cards as ranks: none here (port only)
+    (["--num_devices", "2", "--device", "cuda"], 1, "needs 2 CUDA devices; 0 visible", False),
+    (["--task", "classification", "--oversample_factor", "2"], 1,
+     "--oversample_factor is segmentation-only", True),
+    (["--oversample_factor", "2", "--oversample_classes", "1,7"], ValueError,
+     r"--oversample_classes ids out of range: \[7\]", True),
+    (["--seg_weighing", "nope"], 1, "unknown --seg_weighing 'nope' (expected EFS|INS|ISNS|sklearn)",
+     True),
+    (["--grad_accum", "3"], 1, "--batch_size 2 must be divisible by --grad_accum 3", True),
+    (["--epoch_dispatch", "off", "--dtype", "bfloat16"], 0, None, False),
+    (["--oversample_classes", "1,2"], 0, None, False),  # no --oversample_factor: no repeats
+]
+
+
+@pytest.mark.parametrize("flags, outcome, says, run_jax", JAX_TRAIN_OPTIONS)
+def test_train_refuses_options_this_slice_does_not_cover(flags, outcome, says, run_jax, tmp_path,
+                                                         capsys):
+    """Every JAX training option is taken (none is refused as unported): a
+    refusal is the JAX command's, with its exit code and message, and the
+    JAX command run on the same data says the same; the others train."""
+    from ampnet_tpu.cli.main import main as jmain
+
+    write_dataset(tmp_path)
+    argv = ["train", str(tmp_path), "--path_list_files", str(tmp_path), "--out_path",
+            str(tmp_path / "out"), "--number_of_points", "16", "--number_of_windows", "3",
+            "--batch_size", "2", "--epochs", "1"]
+    runs = [lambda: main(argv + ["--device", "cpu"] + flags)]
+    if run_jax:
+        runs.append(lambda: jmain(argv + flags))
+    for run in runs:
+        if isinstance(outcome, int):
+            assert run() == outcome
+            assert says is None or says in capsys.readouterr().err
+        else:
+            with pytest.raises(outcome, match=says):
+                run()
 
 
 # the geometry and distillation flags on a 13-column dataset, as the JAX
