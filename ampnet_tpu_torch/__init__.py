@@ -7,7 +7,7 @@ counterpart is easy to find:
 
 core      config dataclasses, device selection, weights carried across (Flax
           trees, optax Adam state, reference ``.pth``), metrics, checkpoints,
-          CSV logging
+          CSV and TensorBoard logging, profiling, figures
 data      schema, artifact loaders, LAS I/O, synthetic scenes, windowed
           datasets, padded batchers and the GPU-resident dataset cache
 preproc   offline LAS → windows stages: window split, height above ground,
@@ -18,7 +18,8 @@ models    every family of the factory (AMP-Net attention and GRU segmenters
           and classifiers with the kNN edge block and geometry tokens, classic
           / light PointNet, PointNet++; ``nn.Module``, train and eval) and the
           inference backends
-ops       balanced k-means tiling; sampling (FPS); augmentation;
+ops       balanced k-means tiling; sequential tiling; the sliding-window
+          tower scanner; sampling (FPS); augmentation;
           ``fused_mlp_chain`` and ``quantized_mlp_chain`` (CUDA kernels in
           ``csrc/`` + their plain PyTorch versions)
 train     losses, train state (Adam + schedule), segmentation and
@@ -31,7 +32,9 @@ parallel  data parallelism over processes (NCCL or gloo: global BatchNorm
           statistics, loss normalisers and summed gradients), the
           window-axis forward and the multi-process check
 cli       ``python -m ampnet_tpu_torch synth|preprocess|fps|train|test|infer|
-          export|serve|demo``
+          export|serve|bench|demo``
+bench     the ``bench`` subcommand: windows/s of the flagship forward and
+          the fp32 / bf16 train steps on one card
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -18,6 +18,10 @@ unless ``--device cpu``. Counterparts of ``ampnet_tpu/cli/main.py``:
     serve       a long-lived HTTP server of per-point labels (sharded over
                 ``--num_devices`` model replicas), or of one label per cloud
                 under ``--task classification`` (``cmd_serve``)
+    bench       steady-state windows/s of the flagship forward at 32 × 9 × 2048
+                under ``AMPNET_BACKEND``, and the fp32 and bf16 train steps
+                (``cmd_bench``, ``ampnet_tpu_torch/bench.py``; one JSON line
+                on stdout, the detail on stderr)
     demo        synth → preprocess → train → test on synthetic tiles (``cmd_demo``)
 
 ``test``, ``infer`` and ``serve`` take a reference ``.pth`` or one of the
@@ -870,6 +874,13 @@ def cmd_export(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The bench (``ampnet_tpu_torch/bench.py``) on ``--device``."""
+    from ampnet_tpu_torch import bench
+
+    return bench.main(args.device)
+
+
 def cmd_demo(args) -> int:
     """End-to-end on synthetic data, each stage through its own command:
     synth → preprocess → train ``--arch`` → test (prints ``test``'s summary
@@ -1150,6 +1161,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--warmup_batches", default="1",
                    help="micro-batch cloud-counts to run per warmup size, e.g. 1,2,4")
     s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser("bench", help="single-card throughput benchmark of the flagship "
+                                     "forward (backend from AMPNET_BACKEND) and train steps")
+    s.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a GPU) or cpu")
+    s.set_defaults(fn=cmd_bench)
 
     s = sub.add_parser("demo", help="synthetic end-to-end pipeline")
     s.add_argument("--out_path", default="/tmp/ampnet_demo")

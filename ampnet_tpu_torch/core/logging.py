@@ -1,8 +1,14 @@
-"""Per-epoch scalar logging and evaluation-result rows to CSV, counterpart of
+"""Per-epoch scalar logging and evaluation-result rows, counterpart of
 ``ampnet_tpu/core/logging.py`` (the reference writes TensorBoard scalars and
 CSV rows, ``train_pointnet-attention.py:280-309``,
-``test_pointnet_att_segmen.py:272-284``). The CSV is the record; the port
-writes no TensorBoard events."""
+``test_pointnet_att_segmen.py:272-284``).
+
+``MetricsLogger`` writes two sinks into one directory, as JAX's does: the CSV,
+which is the record and always written, and TensorBoard events through
+``torch.utils.tensorboard.SummaryWriter`` wherever that imports (it needs the
+``tensorboard`` package). Where it does not, ``_tb`` stays ``None`` and only
+the CSV is written, as in JAX.
+"""
 
 from __future__ import annotations
 
@@ -14,9 +20,11 @@ from typing import Dict
 
 class MetricsLogger:
     """Appends ``wall_time, step, tag, value`` rows to
-    ``<logdir>/<name>/scalars.csv``."""
+    ``<logdir>/<name>/scalars.csv`` and, with ``tensorboard`` (where the
+    writer imports), the same scalars as TensorBoard events beside it
+    (``_tb``, which ``core/plotting.py``'s ``tb`` helpers also write to)."""
 
-    def __init__(self, logdir: str, name: str = "train"):
+    def __init__(self, logdir: str, name: str = "train", tensorboard: bool = True):
         self.logdir = os.path.join(logdir, name)
         os.makedirs(self.logdir, exist_ok=True)
         path = os.path.join(self.logdir, "scalars.csv")
@@ -25,9 +33,19 @@ class MetricsLogger:
         self._writer = csv.writer(self._csv)
         if new:
             self._writer.writerow(["wall_time", "step", "tag", "value"])
+        self._tb = None
+        if tensorboard:
+            try:  # the tensorboard package is optional, as in JAX
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self._tb = SummaryWriter(self.logdir)
 
     def scalar(self, tag: str, value: float, step: int) -> None:
         self._writer.writerow([f"{time.time():.3f}", step, tag, float(value)])
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), step)
 
     def scalars(self, values: Dict[str, float], step: int) -> None:
         for k, v in values.items():
@@ -35,9 +53,14 @@ class MetricsLogger:
 
     def flush(self) -> None:
         self._csv.flush()
+        if self._tb is not None:
+            self._tb.flush()
 
     def close(self) -> None:
+        self.flush()
         self._csv.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def append_results_csv(path: str, row: Dict) -> None:

@@ -43,6 +43,12 @@ def iou_from_confusion(cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.where(valid, tp / union.clamp_min(1.0), torch.zeros_like(tp)).float(), valid
 
 
+def iou_per_class(preds: torch.Tensor, targets: torch.Tensor, num_classes: int,
+                  mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-class IoU and validity of ``preds`` against ``targets``."""
+    return iou_from_confusion(confusion_matrix(preds, targets, num_classes, mask))
+
+
 def mean_iou(iou: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """mIoU over the classes present (test_pointnet_att_segmen.py:186-219)."""
     return torch.where(valid, iou, torch.zeros_like(iou)).sum() / valid.sum().clamp_min(1)
@@ -116,3 +122,16 @@ def get_class_weights(method: str, samples_per_cls, beta: float = 0.999):
     if method == "sklearn":
         return weights_sklearn(samples_per_cls)
     return None
+
+
+def weights_for_samples(class_weights: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each sample's class weight, flattened (get_weights4sample,
+    get_metrics.py:80-98), indexed as JAX's ``take`` indexes: a label in
+    [−C, 0) counts from the end, one outside [−C, C) gives NaN."""
+    c = class_weights.shape[0]
+    idx = labels.reshape(-1).long()
+    idx = torch.where(idx < 0, idx + c, idx)
+    inside = (idx >= 0) & (idx < c)
+    out = class_weights[idx.clamp(0, c - 1)]
+    return torch.where(inside, out, torch.full((), float("nan"), dtype=out.dtype,
+                                               device=out.device))

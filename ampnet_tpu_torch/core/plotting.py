@@ -1,11 +1,12 @@
-"""The figures that ``test`` and ``infer`` draw, the port's own copies of four
-functions of ``ampnet_tpu/core/plotting.py`` (reference ``utils/utils_plot.py``):
-the prediction-vs-truth scatter, per-class count and confidence histograms,
-dataset class counts and the confusion heatmap.
+"""Figures, the port's own copy of ``ampnet_tpu/core/plotting.py`` (reference
+``utils/utils_plot.py``): the prediction-vs-truth scatter, the top-down view
+of a tiling, training curves from a ``MetricsLogger`` CSV, 1-D and 2-D
+histograms, per-class count and confidence histograms, dataset class counts
+and the confusion heatmap; and the two helpers that write a histogram or a
+figure into a ``MetricsLogger``'s TensorBoard stream.
 
 matplotlib is optional: each function imports it (Agg backend) when called,
 and a command that would draw checks ``require_matplotlib`` before any work.
-The rest of the JAX module waits for ROADMAP.md Queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -164,3 +165,87 @@ def plot_confusion(cm: np.ndarray, class_names: Sequence[str] = SEG_CLASS_NAMES,
     if title:
         ax.set_title(title)
     return _finish(plt, fig, save_to, bbox_inches="tight", dpi=100)
+
+
+def plot_windows(points: np.ndarray, assignment: np.ndarray, save_to: Optional[str] = None,
+                 title: str = "k-means windows"):
+    """Top-down view of a tiling, one colour per window id of ``assignment``
+    [N] over the xy of ``points`` [N, >=2] (the reference's k-means plots,
+    utils_plot.py:207-262)."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(6, 6))
+    k = int(np.max(assignment)) + 1
+    cmap = plt.get_cmap("tab20")
+    for c in range(k):
+        m = assignment == c
+        ax.scatter(points[m, 0], points[m, 1], s=1.0, color=cmap(c % 20), label=f"w{c}")
+    ax.set_title(f"{title} (k={k})")
+    ax.set_aspect("equal")
+    if k <= 12:
+        ax.legend(markerscale=6, fontsize=7)
+    fig.tight_layout()
+    return _finish(plt, fig, save_to, dpi=120)
+
+
+def plot_training_curves(scalars_csv: str, tags: Sequence[str] = ("loss", "miou", "accuracy"),
+                         save_to: Optional[str] = None):
+    """One curve per tag present in a ``MetricsLogger`` scalars.csv, by step
+    (plot_losses / plot_accuracies, utils_plot.py:13-60)."""
+    import csv
+
+    plt = _pyplot()
+    series = {}
+    with open(scalars_csv) as f:
+        for row in csv.DictReader(f):
+            series.setdefault(row["tag"], []).append((int(row["step"]), float(row["value"])))
+    present = [t for t in tags if t in series]
+    fig, axes = plt.subplots(1, max(len(present), 1), figsize=(5 * max(len(present), 1), 4))
+    if len(present) <= 1:
+        axes = [axes]
+    for ax, tag in zip(axes, present):
+        xs, ys = zip(*sorted(series[tag]))
+        ax.plot(xs, ys)
+        ax.set_title(tag)
+        ax.set_xlabel("epoch")
+    fig.tight_layout()
+    return _finish(plt, fig, save_to, dpi=120)
+
+
+def plot_histogram(values: np.ndarray, bins: int = 50, title: Optional[str] = None,
+                   save_to: Optional[str] = None):
+    """1-D histogram (plot_hist, utils_plot.py:91-97)."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(tight_layout=True)
+    ax.hist(np.asarray(values).ravel(), bins=bins)
+    if title:
+        ax.set_title(title)
+    return _finish(plt, fig, save_to, bbox_inches="tight", dpi=100)
+
+
+def plot_histogram_2d(x: np.ndarray, y: np.ndarray, bins: int = 50, title: Optional[str] = None,
+                      save_to: Optional[str] = None):
+    """2-D (x, y) density histogram with its colour bar (plot_hist2D,
+    utils_plot.py:72-88; the reference eyeballs window layouts with it)."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(tight_layout=True)
+    h = ax.hist2d(np.asarray(x).ravel(), np.asarray(y).ravel(), bins=bins)
+    fig.colorbar(h[3], ax=ax)
+    if title:
+        ax.set_title(title)
+    return _finish(plt, fig, save_to, bbox_inches="tight", dpi=100)
+
+
+def log_histogram_to_tensorboard(logger, tag: str, values: np.ndarray, step: int) -> None:
+    """A TensorBoard histogram through a ``MetricsLogger``'s writer; nothing
+    when it writes no events (``_tb`` is None)."""
+    if getattr(logger, "_tb", None) is not None:
+        logger._tb.add_histogram(tag, np.asarray(values).ravel(), step)
+
+
+def log_figure_to_tensorboard(logger, tag: str, fig, step: int) -> None:
+    """A matplotlib figure into a ``MetricsLogger``'s TensorBoard stream
+    (plot_pc_tensorboard, utils_plot.py:174-204); the figure is closed
+    either way."""
+    if getattr(logger, "_tb", None) is not None:
+        logger._tb.add_figure(tag, fig, step)
+    _pyplot().close(fig)

@@ -90,6 +90,18 @@ def random_point_dropout(points: torch.Tensor, generator: Optional[torch.Generat
     return out, torch.where(drop, labels[..., :1].expand_as(labels), labels)
 
 
+def shuffle_points(points: torch.Tensor, labels: torch.Tensor,
+                   generator: Optional[torch.Generator] = None, perm=None):
+    """Permute the point axis of ``points`` [..., N, F] and ``labels`` [..., N]
+    with one shared permutation (shuffle_data, utils/utils.py:607-617). The
+    encoder is permutation-invariant; order-sensitive consumers (FPS seeding,
+    visual diffs) see the change."""
+    if perm is None:
+        perm = torch.randperm(points.shape[-2], generator=generator, device=points.device)
+    perm = torch.as_tensor(perm, dtype=torch.long, device=points.device)
+    return points[..., perm, :], labels[..., perm]
+
+
 def shuffle_windows(points: torch.Tensor, labels: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     centroids: Optional[torch.Tensor] = None, perm=None):

@@ -163,6 +163,14 @@ def balanced_kmeans(
     return round_balanced(plan, capacities), centroids
 
 
+def cluster_sizes(assign: torch.Tensor, k: int) -> torch.Tensor:
+    """Points per cluster, int32: the sum over the first axis of the one-hot
+    of ``assign`` (a [N] assignment gives [k]); ids outside [0, k), such as
+    the −1 of a masked point, count nowhere, as JAX's ``one_hot`` does."""
+    ids = torch.arange(k, device=assign.device)
+    return (assign[..., None] == ids).sum(dim=0, dtype=torch.int32)
+
+
 def num_tiles_test(n: int, n_points: int, max_clusters: int = 18) -> int:
     """k = floor(N / n_points), capped (utils/utils.py:489-495); 1 if cloud is small."""
     if n < 2 * n_points:

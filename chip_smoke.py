@@ -165,7 +165,26 @@ the run (non-zero exit, no result line) when it does not hold:
    bucket forward) and ``--backend xla`` (bfloat16 logits, no launch) of
    (a)'s checkpoint on phase 7's clouds. (a)-(e) launch neither kernel. The
    ``train_options:`` line prints every number beside the card;
-13. results -- one ``{"kernels": [...]}`` line, then as the last line
+13. bench and observability (``bench_phase``): (a) ``python -m
+   ampnet_tpu_torch bench --device cuda`` through ``cli.main.main`` under
+   ``AMPNET_BACKEND=fused``: exactly one stdout line with the JAX bench's
+   keys, ``value`` > 0 and ``vs_baseline`` from the pinned baseline; the
+   fp32 and bf16 train arms without an error; 4 ``fused_mlp_chain``
+   launches per bench forward; (b) ``measure_forward`` under ``int8`` (2
+   ``quantized_mlp_chain`` + 2 ``fused_mlp_chain`` a forward) and ``xla``
+   (none); (c) the bench forward's logits at [32, 9, 2048, 9] under fused
+   (5e-3, argmax agreement > 0.999) and int8 (> 0.97) against xla; (d)
+   ``core/profiling.py``'s ``trace`` of 4 fused forwards (16 launches by
+   the counters) names the ``fused_mlp_chain`` kernel at least 12 times,
+   their device ms by kernel (torch.profiler), ``StepTimer`` over 10 forwards
+   (each host time at least the CUDA-event time of its call), the phase's
+   ``EnergyTracker`` report, a ``MetricsLogger`` scalar and histogram (the
+   sinks it wrote: TensorBoard events only where the package imports); (e)
+   ``sequential_tiling`` of 32 clouds x 20,000 points on the card equal to
+   the CPU (``zero``, and ``duplicate`` from one index draw), and
+   ``scan_for_towers`` on phase 8's first tile. The ``bench:`` line prints
+   every number beside the card;
+14. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -3248,6 +3267,328 @@ def options_phase(dev, card, work) -> dict:
     return launches
 
 
+# phase 13: the bench subcommand and observability. One bench forward pass
+# at 32 x 9 x 2048 per call: 1 first call, 3 warm, 3 reps of 30 chained and
+# 30 independent (ampnet_tpu_torch/bench.py)
+BENCH_FORWARDS = 1 + 3 + 3 * (30 + 30)
+BENCH_RUNS = {"bench_fused": LAUNCHES_PER_FORWARD["fused"],
+              "bench_int8": LAUNCHES_PER_FORWARD["int8"],
+              "bench_xla": {"fused_mlp_chain": 0, "quantized_mlp_chain": 0}}
+BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "compile_s",
+                   "reps_windows_per_sec", "rep_spread_pct"}
+TILING_CLOUDS, TILING_POINTS, TILING_N_POINTS = 32, 20_000, 2048
+TRACE_FORWARDS = 4  # traced fused forwards in (d): a spare first, then 3
+
+
+@contextlib.contextmanager
+def bench_backend(backend):
+    """AMPNET_BACKEND set for one call, and restored after."""
+    before = os.environ.get("AMPNET_BACKEND")
+    os.environ["AMPNET_BACKEND"] = backend
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["AMPNET_BACKEND"]
+        else:
+            os.environ["AMPNET_BACKEND"] = before
+
+
+def launch_counts() -> dict:
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
+
+    return {"fused_mlp_chain": fused_mlp_chain.launches,
+            "quantized_mlp_chain": quantized_mlp_chain.launches}
+
+
+def check_bench_launches(run, counts):
+    want = {k: v * BENCH_FORWARDS for k, v in BENCH_RUNS[run].items()}
+    if counts != want:
+        raise RuntimeError(f"{run}: launches {counts}, want {want} ({BENCH_FORWARDS} forwards)")
+
+
+def bench_cli(dev) -> tuple:
+    """(a): ``bench --device`` through ``cli.main.main`` under fused →
+    (the stdout line, the stderr detail, launches)."""
+    from ampnet_tpu_torch.cli.main import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    reset_launches()
+    with bench_backend("fused"), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = cli_main(["bench", "--device", str(dev)])
+    counts = launch_counts()
+    err = err.getvalue()
+    if rc != 0:
+        raise RuntimeError(f"(a) bench exited {rc}: {err[-2000:]}")
+    lines = out.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        raise RuntimeError(f"(a) bench printed {len(lines)} stdout lines, want 1: {lines}")
+    line = json.loads(lines[0])
+    start = 0 if err.startswith("{\n") else err.rindex("\n{\n") + 1
+    detail = json.JSONDecoder().raw_decode(err[start:])[0]
+    return line, detail, counts
+
+
+def bench_trace(call, trace_dir, forwards=TRACE_FORWARDS) -> tuple:
+    """``core/profiling.py``'s ``trace`` around ``forwards`` calls of a fused
+    bench forward → (trace files, the trace's ``fused_mlp_chain`` kernel
+    names, the launches counted meanwhile, attempts). The counters must show
+    4 launches a forward. The profiler may miss the first kernels of a trace
+    (phase 5's breakdown sees whole short traces come back empty), so
+    the first call is a spare: a trace that holds fewer than the other calls'
+    kernels is taken again, up to 3 times."""
+    import glob
+
+    from ampnet_tpu_torch.core.profiling import trace
+
+    per = LAUNCHES_PER_FORWARD["fused"]["fused_mlp_chain"]
+    for attempt in range(1, 4):
+        logdir = os.path.join(trace_dir, str(attempt))
+        torch.cuda.synchronize()
+        reset_launches()
+        with trace(logdir):
+            for _ in range(forwards):
+                call()
+            torch.cuda.synchronize()
+        launched = launch_counts()
+        if launched != {"fused_mlp_chain": per * forwards, "quantized_mlp_chain": 0}:
+            raise RuntimeError(f"(d) {forwards} traced forwards launched {launched}")
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        chain = []
+        for path in files:
+            with open(path) as f:
+                # the kernel of csrc/fused_mlp.cu takes a Chain; quantized_mlp.cu's a Params
+                chain += [e["name"] for e in json.load(f)["traceEvents"]
+                          if e.get("cat") == "kernel" and "chain_kernel" in e["name"]
+                          and "Chain" in e["name"]]
+        if len(chain) > per * forwards:
+            raise RuntimeError(f"(d) the trace holds {len(chain)} fused_mlp_chain kernels, "
+                               f"more than the {per * forwards} launched")
+        if len(chain) >= per * (forwards - 1):
+            break
+    return files, chain, launched, attempt
+
+
+def forward_device_ms(call, forwards=3) -> dict:
+    """Device ms of one call by kernel (torch.profiler over ``forwards``
+    recorded calls after a warm-up one, read when the recorded steps end):
+    every kernel, the ``chain_kernel``s, and the six largest; "not
+    measured" when the profiler returns no device event."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    top = {}
+
+    def ready(prof):
+        for e in prof.key_averages():
+            # device events but the steps' own spans; names sharing 60 characters are summed
+            if e.device_type.name == "CUDA" and not e.key.startswith("ProfilerStep"):
+                top[e.key[:60]] = (top.get(e.key[:60], 0.0)
+                                   + e.self_device_time_total / 1e3 / forwards)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=forwards),
+                 on_trace_ready=ready) as prof:
+        for _ in range(1 + forwards):
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+    if not top:
+        return {"all": "not measured"}
+    return {"all": sum(top.values()),
+            "chain_kernel": sum(ms for k, ms in top.items() if "chain_kernel" in k),
+            "top": dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])}
+
+
+def bench_phase(dev, card, work) -> dict:
+    """Phase 13: (a) ``python -m ampnet_tpu_torch bench --device cuda`` under
+    ``AMPNET_BACKEND=fused``: one stdout line with the JAX bench's keys,
+    ``value`` > 0, ``vs_baseline`` from the pin, fp32 and bf16 train arms
+    without an error, 4 ``fused_mlp_chain`` launches per forward; (b)
+    ``measure_forward`` under int8 (2 + 2 a forward) and xla (none); (c)
+    the bench forward's logits at [32, 9, 2048, 9] under fused and int8
+    against xla on the bench's model and draws (fused 5e-3 and agreement >
+    0.999; int8 agreement > 0.97); (d) ``trace`` of 4 fused forwards names
+    ``fused_mlp_chain``'s kernel (``bench_trace``), their device ms by
+    kernel, ``StepTimer`` over 10 forwards (each time
+    at least the CUDA-event time of its call), the phase's
+    ``EnergyTracker`` report, a ``MetricsLogger`` scalar and histogram; (e)
+    ``sequential_tiling`` on the card against the CPU, and
+    ``scan_for_towers`` on phase 8's first tile. Returns the bench runs'
+    launches."""
+    import glob
+
+    from ampnet_tpu_torch import bench
+    from ampnet_tpu_torch.core.config import AMPNetConfig
+    from ampnet_tpu_torch.core.logging import MetricsLogger
+    from ampnet_tpu_torch.core.plotting import log_histogram_to_tensorboard
+    from ampnet_tpu_torch.core.profiling import EnergyTracker, StepTimer
+    from ampnet_tpu_torch.data.las_io import read_las
+    from ampnet_tpu_torch.ops.sequential_tiling import sequential_tiling, sequential_tiling_from
+    from ampnet_tpu_torch.ops.sliding_window import scan_for_towers
+
+    gc_cuda()
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    launches = {}
+    energy = EnergyTracker()
+    with energy:
+        # (a) the bench command under fused
+        line, detail, launches["bench_fused"] = bench_cli(dev)
+        check_bench_launches("bench_fused", launches["bench_fused"])
+        with open(bench.BASELINE_PIN) as f:
+            pin = json.load(f)["windows_per_sec"]
+        train = detail["train"]
+        out["a_cli"] = {"line": line, "train": train,
+                        "forward_ms": {k: detail["forward"][k]
+                                       for k in ("throughput_step_ms", "latency_step_ms")},
+                        "device": detail["forward"]["device"],
+                        "launches": launches["bench_fused"]}
+        _say("  (a) " + json.dumps(out["a_cli"]))
+        if set(line) != BENCH_LINE_KEYS or not line["value"] > 0 \
+                or line["vs_baseline"] != round(line["value"] / pin, 2):
+            raise RuntimeError(f"(a) the bench line {line} lacks the JAX keys, a value or the "
+                               f"pinned baseline's ratio ({pin} windows/s)")
+        if "error" in train or any(not train[arm]["step_ms"] > 0 for arm in ("fp32", "bf16")):
+            raise RuntimeError(f"(a) a train arm failed: {train}")
+
+        # (b) measure_forward under int8 and xla
+        out["b_forward"] = {}
+        for backend in ("int8", "xla"):
+            run = f"bench_{backend}"
+            reset_launches()
+            with bench_backend(backend):
+                res = bench.measure_forward(device=dev)
+            launches[run] = launch_counts()
+            check_bench_launches(run, launches[run])
+            out["b_forward"][backend] = {k: res[k] for k in (
+                "windows_per_sec", "throughput_step_ms", "latency_step_ms",
+                "windows_per_sec_reps", "compile_s")}
+        _say("  (b) " + json.dumps(out["b_forward"]))
+
+        # (c) the bench forward's logits against xla
+        cfg = AMPNetConfig()
+        model = bench.bench_model(cfg)
+        pts, cent = (torch.from_numpy(a).to(dev) for a in bench.forward_inputs())
+        pad = torch.zeros(pts.shape[:2], dtype=torch.bool, device=dev)
+        zero = torch.zeros((), device=dev)
+        logits = {b: bench.make_bench_forward(model, cfg, b, dev)(pts, cent, pad, zero)[0]
+                  for b in ("xla", "fused", "int8")}
+        torch.cuda.synchronize()
+        want = (*pts.shape[:3], cfg.model.num_classes)
+        ref = logits["xla"]
+        out["c_against_xla"] = {}
+        for b in ("fused", "int8"):
+            got = logits[b]
+            if tuple(got.shape) != want or not torch.isfinite(got).all():
+                raise RuntimeError(f"(c) {b} logits {tuple(got.shape)}, want {want}, finite")
+            out["c_against_xla"][b] = {
+                "max_abs_diff": (got - ref).abs().max().item(),
+                "agreement": (got.argmax(-1) == ref.argmax(-1)).float().mean().item()}
+        out["c_against_xla"]["max_abs_logit"] = ref.abs().max().item()
+        _say("  (c) " + json.dumps(out["c_against_xla"]))
+        fused, int8 = out["c_against_xla"]["fused"], out["c_against_xla"]["int8"]
+        if not (fused["max_abs_diff"] <= 5e-3 and fused["agreement"] > 0.999
+                and int8["agreement"] > 0.97):
+            raise RuntimeError("(c) the bench forward under fused or int8 does not track xla")
+        del logits, ref
+
+        # (d) observability: the trace, the step timer, the logger
+        fwd = bench.make_bench_forward(model, cfg, "fused", dev)
+        call = lambda: fwd(pts, cent, pad, zero)
+        files, chain, traced, attempts = bench_trace(call, os.path.join(work, "bench_trace"))
+        per_forward = forward_device_ms(call)
+        timer, rows = StepTimer(), []
+        for _ in range(10):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timer.start()
+            start.record()
+            res = fwd(pts, cent, pad, zero)
+            end.record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            host_ms = timer.stop(res) * 1e3
+            rows.append((host_ms, start.elapsed_time(end), enqueue_ms))
+        logger = MetricsLogger(os.path.join(work, "bench_logs"), "bench")
+        logger.scalar("bench/windows_per_sec", line["value"], 0)
+        log_histogram_to_tensorboard(logger, "bench/forward_ms", np.asarray(timer.times) * 1e3, 0)
+        logger.close()
+        events = glob.glob(os.path.join(logger.logdir, "events*"))
+        out["d_observability"] = {
+            "trace_files": len(files), "trace_attempts": attempts,
+            "traced_launches": traced, "trace_chain_kernels": len(chain),
+            "chain_kernel_name": chain[0] if chain else None,
+            "device_ms_per_forward": per_forward,
+            "step_timer": timer.summary(), "host_ms": [r[0] for r in rows],
+            "cuda_event_ms": [r[1] for r in rows], "enqueue_ms": [r[2] for r in rows],
+            "sinks": {"csv": os.path.exists(os.path.join(logger.logdir, "scalars.csv")),
+                      "tensorboard": logger._tb is not None, "events_files": len(events)}}
+        _say("  (d) " + json.dumps(out["d_observability"]))
+        want = LAUNCHES_PER_FORWARD["fused"]["fused_mlp_chain"] * (TRACE_FORWARDS - 1)
+        if len(files) != 1 or len(chain) < want:
+            raise RuntimeError(f"(d) after {attempts} traces: {len(files)} files and "
+                               f"{len(chain)} fused_mlp_chain kernels, want 1 and >= {want}")
+        if any(host < dev_ms for host, dev_ms, _ in rows):
+            raise RuntimeError("(d) a StepTimer time is under its call's CUDA-event time")
+        if (logger._tb is not None) != bool(events):
+            raise RuntimeError("(d) MetricsLogger's events files do not match its writer")
+        del model, fwd, res, pts, cent
+        gc_cuda()
+
+        # (e) sequential tiling on the card against the CPU; the tower scanner
+        rng = np.random.default_rng(SEED)
+        pts = rng.normal(size=(TILING_CLOUDS, TILING_POINTS, 9)).astype(np.float32)
+        tgt = rng.integers(0, 5, size=(TILING_CLOUDS, TILING_POINTS)).astype(np.int32)
+        for i, n_pad in enumerate(rng.integers(0, 6000, size=TILING_CLOUDS)):
+            if n_pad:
+                pts[i, -n_pad:], tgt[i, -n_pad:] = 0.0, -1
+        pts_c, tgt_c = torch.from_numpy(pts), torch.from_numpy(tgt)
+        pts_d, tgt_d = pts_c.to(dev), tgt_c.to(dev)
+        m = (TILING_POINTS // TILING_N_POINTS) * TILING_N_POINTS
+        rand = torch.randint(0, TILING_POINTS, (TILING_CLOUDS, m),
+                             generator=torch.Generator().manual_seed(SEED))
+        tiling = {}
+        for fill, r in (("zero", None), ("duplicate", rand)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = sequential_tiling_from(pts_d, tgt_d, TILING_N_POINTS, fill, r)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            want_t = sequential_tiling_from(pts_c, tgt_c, TILING_N_POINTS, fill, r)
+            equal = all(torch.equal(g.cpu(), w) for g, w in zip(got, want_t))
+            tiling[fill] = {"card_ms": ms, "equal_to_cpu": equal,
+                            "shape": list(got[0].shape)}
+        drawn = sequential_tiling(pts_d, tgt_d, TILING_N_POINTS)
+        tiling["duplicate_card_generator"] = {
+            "device": str(drawn[0].device), "padded_left": int((drawn[1] == -1).sum())}
+        las = read_las(sorted(glob.glob(os.path.join(work, "tiles", "las", "*.las")))[0])
+        cloud = np.stack([las.x, las.y, las.z, las.classification]).astype(np.float64)
+        t0 = time.perf_counter()
+        windows, centers = scan_for_towers(cloud)
+        scan_s = time.perf_counter() - t0
+        out["e_tiling_scanner"] = {
+            "tiling": tiling, "tile_points": int(cloud.shape[1]),
+            "tower_points": int(np.isin(cloud[3], (15,)).sum()), "scan_s": scan_s,
+            "windows": None if windows is None else len(windows),
+            "window_points": None if windows is None else [int(w.shape[1])
+                                                           for w in windows.values()],
+            "centers": None if centers is None else [[round(c, 2) for c in xy]
+                                                     for xy in centers.values()]}
+        _say("  (e) " + json.dumps(out["e_tiling_scanner"]))
+        if not all(tiling[f]["equal_to_cpu"] for f in ("zero", "duplicate")) \
+                or tiling["duplicate_card_generator"]["padded_left"] \
+                or drawn[0].device.type != "cuda":
+            raise RuntimeError("(e) sequential_tiling on the card differs from the CPU")
+        if not windows:
+            raise RuntimeError("(e) scan_for_towers found no tower window in a synthetic tile")
+    out["energy"] = energy.report()
+    out["phase_s"] = time.perf_counter() - t_phase
+    _say("bench: " + json.dumps(out))
+    return launches
+
+
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, and the host
     solver by ``g++``, all started together, and loaded."""
@@ -3279,54 +3620,57 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     _say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    _say("[1/13] card")
+    _say("[1/14] card")
     card = card_line()
     _say(card)
 
-    _say("[2/13] build")
+    _say("[2/14] build")
     build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
-    _say("[3/13] kernels against their plain versions")
+    _say("[3/14] kernels against their plain versions")
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/13] model: fused and int8 against the module forward")
+    _say("[4/14] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
-    _say("[5/13] serve")
+    _say("[5/14] serve")
     runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
     cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as work:
-        _say("[6/13] train")
+        _say("[6/14] train")
         train_launches, ckpt = train_phase(dev, card, work)
 
-        _say("[7/13] evaluate")
+        _say("[7/14] evaluate")
         eval_launches = evaluate_phase(ckpt, dev, card, work)
 
-        _say("[8/13] tiles: host data stages, whole-tile infer, demo")
+        _say("[8/14] tiles: host data stages, whole-tile infer, demo")
         tile_launches, tiles_data = tiles_phase(ckpt, dev, card, work)
         eval_launches.update(tile_launches)
 
-        _say("[9/13] families: gru, classification, baseline, classic, pointnet2")
+        _say("[9/14] families: gru, classification, baseline, classic, pointnet2")
         families_phase(ckpt, dev, card, work)
 
-        _say("[10/13] geometry: eigenfeature columns, edge block, geom tokens, distillation")
+        _say("[10/14] geometry: eigenfeature columns, edge block, geom tokens, distillation")
         geom_launches, geom_rows = geometry_phase(os.path.join(work, "tiles"), tiles_data,
                                                      dev, card, work)
 
-        _say("[11/13] parallel: sharded steps, two ranks, sharded serving, window axis")
+        _say("[11/14] parallel: sharded steps, two ranks, sharded serving, window axis")
         par_launches = parallel_phase(model, cfg, dev, card, work)
 
-        _say("[12/13] training options: bf16, remat, oversampling, weights, dispatch, "
+        _say("[12/14] training options: bf16, remat, oversampling, weights, dispatch, "
              "host batcher")
         option_launches = options_phase(dev, card, work)
 
-    _say("[13/13] results")
+        _say("[13/14] bench and observability: bench, profiling, logging, tiling, scanner")
+        bench_launches = bench_phase(dev, card, work)
+
+    _say("[14/14] results")
     # launches only where the serving runs counted them: each kernel in both
     # runs, and each serving chain once per bucket forward that ran it (its M
     # there is 18 x clouds in the bucket); the other cases are shapes the
@@ -3358,13 +3702,25 @@ def main() -> int:
                 total["launches_by_run"][run] = counts[name]
         # phase 12 checked 0 on its training runs (a)-(e) and under xla
         total["launches_by_run"]["options_train"] = 0
+        for run, counts in bench_launches.items():  # phase 13 (a), (b): the bench forwards
+            if BENCH_RUNS[run][name]:
+                total["launches_by_run"][run] = counts[name]
+        # phase 13 checked 0 on the bench's train arms and under xla
+        total["launches_by_run"]["bench_train_xla"] = 0
         total["launches"] = sum(total["launches_by_run"].values())
-    tnets = ("serve:input_tnet", "serve:feature_tnet")  # the T-Nets run under both backends
+    # the serve: chains ran once a bucket forward of phase 5, the bench: chains
+    # once a bench forward of phase 13; the T-Nets run under both backends
+    fwd_by = {"serve": fwd, "bench": {b: bench_launches[f"bench_{b}"]["fused_mlp_chain"]
+                                      // LAUNCHES_PER_FORWARD[b]["fused_mlp_chain"]
+                                      for b in LAUNCHES_PER_FORWARD}}
+    tnets = ("input_tnet", "feature_tnet")
     for row in fused_cases:
-        row["launches"] = (fwd["fused"] + (fwd["int8"] if row["case"] in tnets else 0)
-                           if row["case"].startswith("serve:") else None)
+        path, _, chain = row["case"].partition(":")
+        row["launches"] = (fwd_by[path]["fused"] + (fwd_by[path]["int8"] if chain in tnets else 0)
+                           if path in fwd_by else None)
     for row in int8_cases:
-        row["launches"] = fwd["int8"] if row["case"].startswith("serve:") else None
+        path = row["case"].partition(":")[0]
+        row["launches"] = fwd_by[path]["int8"] if path in fwd_by else None
     # serve_geom:mlp_a runs once a bucket forward of phase 10's fused runs
     # (fused_mlp_chain) and int8 runs (quantized_mlp_chain)
     for cases, name, backend in ((fused_cases, "fused_mlp_chain", "fused"),
