@@ -13,7 +13,38 @@ device, batched over the clouds as the JAX program is:
 Static shapes come from replicate padding: the cloud is padded up to
 ``k × cap`` points by duplicating random real points (``np.random``, the
 same draws as the JAX package); duplicate predictions are dropped on the way
-out.
+out. Each bucket's batch is padded as JAX pads it: to a power of two (then
+to a multiple of the device count) with copies of its first cloud under
+seed 0, whose labels are dropped, so a (k, cap) runs at most log2(B) batch
+shapes.
+
+The bucket program is JAX's jitted program, compiled once per shape, in CUDA
+terms. ``_bucket_fn`` returns one runner per (device, k, cap, probs, rows per
+device). On a CUDA device it is a ``_BucketGraph``: its first call runs the
+body (``_run_bucket``) once on a side stream, to warm it up (kernel
+attributes, library plans, allocator), and those outputs serve that call;
+then it captures the body as a CUDA graph. Every later call copies the
+wire-encoded points, scales, offsets and k-means inits into the graph's
+static inputs and replays it: one ``cudaGraphLaunch`` where the body makes
+~8,000 kernel launches. Three rules hold it together:
+
+* the k-means inits are drawn outside the graph, from one seeded
+  ``torch.Generator`` per cloud (a replay cannot draw new generator state),
+  and copied into the graph's static ``init``;
+* every graph of a device allocates from one memory pool, so a block may be
+  one graph's static output and another graph's scratch: a replay's outputs
+  are copied into fresh pinned host memory, on the stream, before any other
+  replay of that device starts;
+* one lock per device, held from the first copy into a static input until
+  the event after the copy-out is recorded, gives that order on the
+  device's stream across the dispatch pool's threads, the serving worker
+  and shards that share a card. Captures take the same lock and capture
+  thread-locally, so another thread's event waits and pinned allocations
+  do not break them.
+
+A capture that fails raises: no CUDA tensor runs the eager body after it,
+and nothing turns the graphs off. On the CPU the runner is the eager body.
+The kernels' launch counters count a replay's launches (``ops/launch_count.py``).
 
 Dispatch and fetch are split for the serving loop. ``dispatch_many`` uploads
 each bucket from pinned memory, enqueues its work and an asynchronous copy
@@ -21,11 +52,11 @@ of the results into pinned host memory, records a CUDA event, and returns
 without waiting on the device: no ``.item()``, no ``.cpu()``, no
 data-dependent shape. ``fetch_many`` waits on each bucket's event, so it may
 run on another thread than the one that enqueued the work. All of it runs on
-the device's current stream.
+the device's current stream (the graph's first call also synchronizes the
+device once, to capture).
 
-A bucket costs the same number of kernel launches whatever B is, so
-concurrent requests share the launch cost, which bounds the tiling on the
-host. In exact arithmetic a cloud's labels do not depend on its co-batched
+A bucket costs one graph launch whatever B is, so concurrent requests share
+it. In exact arithmetic a cloud's labels do not depend on its co-batched
 clouds. In fp32 a batched reduction or matmul may take its sums in another
 order than the same work at B = 1, so a few labels near a tie may differ,
 as in the JAX package (whose program is compiled per padded batch shape).
@@ -44,18 +75,20 @@ one window (k = 1) of capacity ``n_points · 2^j``, as the JAX command does
 
 Several devices (``devices=[...]``, ``serve --num_devices``): the model,
 with its folded and prepared chains, is placed once on each distinct device,
-each bucket's batch is padded (copies of its first cloud) to a multiple of
-the device count, and its contiguous shards run on their devices, each shard
-one bucket forward; ``fetch_many`` joins them. One process drives the list,
-as the JAX mesh's single controller does; clouds are independent, so no
-collective is needed. A shard's labels equal ``predict_many`` on one device
-over the same clouds and seeds.
+each bucket's padded batch is split into contiguous shards that run on their
+devices, each shard one bucket forward; ``fetch_many`` joins them. One
+process drives the list, as the JAX mesh's single controller does; clouds
+are independent, so no collective is needed. A shard's labels equal
+``predict_many`` on one device over the same clouds and seeds. Shards that
+share a device share its graph.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -69,6 +102,7 @@ from ampnet_tpu_torch.core.metrics import confusion_matrix, iou_from_confusion
 from ampnet_tpu_torch.data.schema import SEG_CLASS_NAMES
 from ampnet_tpu_torch.models.backends import make_forward
 from ampnet_tpu_torch.ops.kmeans import balanced_kmeans, num_tiles_test
+from ampnet_tpu_torch.ops.launch_count import add_launches, recording
 
 KMEANS_FEATURE_IDX = (0, 1, 8)  # x, y, NDVI of the 9-feature layout
 
@@ -132,6 +166,82 @@ def _indexed(dev: torch.device) -> torch.device:
     return dev
 
 
+# per CUDA device: the lock, the memory pool and the capture stream that all
+# of its bucket graphs share (``_BucketGraph``)
+_GRAPH_DEVICES: Dict[torch.device, tuple] = {}
+_GRAPH_DEVICES_LOCK = threading.Lock()
+
+
+def _graph_device(dev: torch.device) -> tuple:
+    with _GRAPH_DEVICES_LOCK:
+        if dev not in _GRAPH_DEVICES:
+            with torch.cuda.device(dev):
+                _GRAPH_DEVICES[dev] = (threading.Lock(), torch.cuda.graph_pool_handle(),
+                                       torch.cuda.Stream(dev))
+        return _GRAPH_DEVICES[dev]
+
+
+class _BucketGraph:
+    """One bucket shape's body on a CUDA device, captured as a CUDA graph on
+    its first call and replayed on every later one (module docstring)."""
+
+    def __init__(self, body, device: torch.device):
+        self.body, self.device = body, device
+        self.lock, self.pool, self.stream = _graph_device(device)
+        self.inputs = None  # static: points, scale, offset, init (or None)
+        self.graph = self.outputs = None
+        self.launches: dict = {}  # kernel launches of one replay, by wrapper
+        self.capture_ms: Optional[float] = None
+
+    def __call__(self, points, scale, offset, init):
+        """``points`` [B, k·cap, F] in the wire dtype, ``scale`` and
+        ``offset`` [B, F] (pinned host tensors) and ``init`` ([B, k] int64 on
+        the device, or None) → (labels, probs or None) in fresh pinned host
+        memory, and the event recorded after their copy."""
+        given = (points, scale, offset, init)
+        with self.lock, torch.cuda.device(self.device), torch.inference_mode():
+            stream = torch.cuda.current_stream(self.device)
+            if self.inputs is None:
+                self.inputs = tuple(None if t is None else torch.empty_like(t, device=self.device)
+                                    for t in given)
+            for dst, src in zip(self.inputs, given):
+                if dst is not None:
+                    dst.copy_(src, non_blocking=True)
+            if self.graph is None:
+                outputs = self._capture(stream)
+            else:
+                self.graph.replay()
+                add_launches(self.launches)
+                outputs = self.outputs
+            # copied out before the lock is released: the device's next
+            # replay may write these blocks
+            host = tuple(None if t is None else
+                         torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                             t, non_blocking=True) for t in outputs)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return (*host, event)
+
+    def _capture(self, stream):
+        """The warm-up, whose outputs this call returns, then the capture."""
+        t0 = time.perf_counter()
+        self.stream.wait_stream(stream)
+        with torch.cuda.stream(self.stream):
+            warm = self.body(*self.inputs)
+        stream.wait_stream(self.stream)
+        for t in warm:
+            if t is not None:
+                t.record_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        # the launches a capture records run on each replay, not now
+        with recording() as launches, torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
+            outputs = self.body(*self.inputs)
+        self.graph, self.outputs, self.launches = graph, outputs, launches
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        return warm
+
+
 class TiledInferencer:
     def __init__(
         self,
@@ -181,11 +291,14 @@ class TiledInferencer:
             )
         # clouds beyond this size are spatially halved and predicted per half
         self.max_points_per_call = max_points_per_call
-        # every (k, cap, probs, batch) shape that has executed at least once;
-        # serving tags requests whose micro-batch ran a new shape as cold
-        # (first-use kernel build, allocator growth, library plans)
+        # every (k, cap, probs, padded batch) shape that has run at least
+        # once, as JAX counts its compiled programs; serving tags requests
+        # whose micro-batch ran a new shape as cold (a graph capture)
         self._warm_shapes: set = set()
         self._cold_count: int = 0
+        # the bucket runners (``_bucket_fn``) by (device, k, cap, probs, rows)
+        self._runners: dict = {}
+        self._runners_lock = threading.Lock()
         # each distinct device holds its own copy of the members, prepared once
         self._forwards_on = {}
         for i, dev in enumerate(dict.fromkeys(self.devices)):
@@ -214,18 +327,11 @@ class TiledInferencer:
             cap *= 2
         return cap
 
-    def _upload(self, a: np.ndarray, device: torch.device) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            # pinned + non_blocking: a pageable upload would wait for the stream
-            t = t.pin_memory().to(device, non_blocking=True)
-        return t
-
     def _run_bucket(self, k: int, cap: int, probs: bool, points, scale, offset, init):
-        """One bucket program: ``points`` [B, k*cap, F] in the wire dtype on
-        one of the devices, ``init`` [B, k] k-means init indices (None for
-        k = 1) → (labels [B, n] int8, probs [B, n, C] float16 or None) in
-        each cloud's original point order."""
+        """A bucket's body, what its graph captures: ``points`` [B, k*cap, F]
+        in the wire dtype on one of the devices, ``init`` [B, k] k-means init
+        indices (None for k = 1) → (labels [B, n] int8, probs [B, n, C]
+        float16 or None) in each cloud's original point order."""
         b, n, f = points.shape
         int8_wire = self.transfer_dtype == np.dtype(np.int8)
 
@@ -270,12 +376,28 @@ class TiledInferencer:
         pflat = torch.zeros_like(p).scatter_(1, order[..., None].expand_as(p), p)
         return flat, pflat
 
+    def _bucket_fn(self, k: int, cap: int, probs: bool, device: torch.device, b: int):
+        """The runner of a bucket of ``b`` clouds on ``device``, made once:
+        ``run(points, scale, offset, init)``. On the CPU it is the eager body
+        (→ labels, probs or None); on a CUDA device a ``_BucketGraph``
+        (→ labels, probs or None in pinned host memory, and an event)."""
+        body = functools.partial(self._run_bucket, k, cap, probs)
+        if device.type != "cuda":
+            return body
+        key = (device, k, cap, bool(probs), b)
+        with self._runners_lock:
+            if key not in self._runners:
+                self._runners[key] = _BucketGraph(body, device)
+            return self._runners[key]
+
     def _init_idx(self, n: int, k: int, seed: int, given, device) -> torch.Tensor:
         """A cloud's [k] k-means init indices on ``device``: ``given`` when not
         None, else the first k of a permutation from a generator seeded by
         ``seed``."""
         if given is not None:
-            return self._upload(np.asarray(given, np.int64), device)
+            t = torch.from_numpy(np.asarray(given, np.int64))
+            # pinned + non_blocking: a pageable upload would wait for the stream
+            return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
         gen = torch.Generator(device=device).manual_seed(int(seed))
         return torch.randperm(n, generator=gen, device=device)[:k]
 
@@ -366,20 +488,23 @@ class TiledInferencer:
         nd = len(self.devices)
         for (k, cap), idxs in buckets.items():
             rows = np.stack([prepped[i][0] for i in idxs])
-            # a multiple of the device count, padded with copies of the first
-            # cloud (seed 0), whose labels are dropped; contiguous shards
-            per = -(-len(idxs) // nd)
-            if per * nd > len(idxs):
-                rows = np.concatenate([rows, np.repeat(rows[:1], per * nd - len(idxs), axis=0)])
-            self._mark_program(k, cap, return_probs, per)
+            # JAX's padding: a power of two, so a (k, cap) runs at most
+            # log2(B) batch shapes, then a multiple of the device count; the
+            # copies of the first cloud (seed 0) have their labels dropped
+            b_pad = 1 << (len(idxs) - 1).bit_length()
+            b_pad = -(-b_pad // nd) * nd
+            if b_pad > len(idxs):
+                rows = np.concatenate([rows, np.repeat(rows[:1], b_pad - len(idxs), axis=0)])
+            self._mark_program(k, cap, return_probs, b_pad)
+            per = b_pad // nd  # contiguous shards
             for d, dev in enumerate(self.devices):
                 calls.append((k, cap, idxs[d * per:(d + 1) * per], rows[d * per:(d + 1) * per],
                               dev))
 
         def launch(call):
             k, cap, idxs, rows, dev = call
-            enc, scales, offsets = self._encode_batch(rows)
-            pts, sc, off = (self._upload(a, dev) for a in (enc, scales, offsets))
+            wire = [torch.from_numpy(np.ascontiguousarray(a)) for a in self._encode_batch(rows)]
+            run = self._bucket_fn(k, cap, return_probs, dev, len(rows))
             # grad mode is per thread: each launching thread sets its own
             with torch.inference_mode():
                 init = None if k == 1 else torch.stack([
@@ -387,15 +512,10 @@ class TiledInferencer:
                                    None if init_idx is None else init_idx[i], dev)
                     for i in idxs] + [self._init_idx(k * cap, k, 0, None, dev)]
                     * (len(rows) - len(idxs)))
-                flat, pflat = self._run_bucket(k, cap, return_probs, pts, sc, off, init)
-            if dev.type != "cuda":
-                return flat, pflat, None
-            # results land in pinned host memory; the event marks the copy done
-            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
-                    if t is not None else None for t in (flat, pflat)]
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-            return host[0], host[1], event
+                if dev.type != "cuda":
+                    return (*run(*wire, init), None)
+                # pinned: the copies into the graph's inputs leave the host at once
+                return run(*(t.pin_memory() for t in wire), init)
 
         if len(calls) > 1:
             # overlap per-bucket host prep and uploads across threads
@@ -506,12 +626,12 @@ EVAL_CHUNK = 16  # clouds that test and infer load and predict at once
 PLOT_LIMIT = 8  # clouds that test --plot draws
 
 
-def eval_chunks(n_clouds: int, views: int = 1) -> List[range]:
+def eval_chunks(n_clouds: int, views: int = 1, chunk_size: int = EVAL_CHUNK) -> List[range]:
     """The chunks in which ``test`` and ``infer`` predict ``n_clouds`` clouds:
-    ``EVAL_CHUNK`` clouds, shrunk by the ``views`` (tta × tile_votes) each
+    ``chunk_size`` clouds, shrunk by the ``views`` (tta × tile_votes) each
     cloud costs. A chunk's indices are also its clouds' seeds, so the two
     commands tile every cloud alike."""
-    size = max(1, EVAL_CHUNK // views)
+    size = max(1, chunk_size // views)
     return [range(s, min(s + size, n_clouds)) for s in range(0, n_clouds, size)]
 
 
@@ -546,18 +666,19 @@ def evaluate_cloud(preds: np.ndarray, labels: np.ndarray, num_classes: int) -> D
 
 def evaluate_dataset(inferencer, dataset, out_csv: Optional[str] = None,
                      model_name: str = "ampnet_tpu_torch", plot_dir: Optional[str] = None,
+                     plot_limit: int = PLOT_LIMIT, chunk_size: int = EVAL_CHUNK,
                      tta: int = 1, tile_votes: int = 1,
                      analysis_dir: Optional[str] = None) -> Dict:
     """Evaluate every cloud of ``dataset`` (``EvalCloudDataset``): per-cloud
     rows, a dataset summary of per-class IoU, mIoU, OA and points/s, and one
     summary row appended to ``out_csv`` (test_pointnet_att_segmen.py:272-284).
 
-    Clouds are loaded and predicted in ``eval_chunks`` with their indices as
-    seeds; same-bucket clouds in a chunk share one dispatch. ``tta > 1``
-    averages class probabilities over that many dihedral views,
-    ``tile_votes > 1`` over that many tilings of each view
+    Clouds are loaded and predicted in ``eval_chunks`` of ``chunk_size``
+    with their indices as seeds; same-bucket clouds in a chunk share one
+    dispatch. ``tta > 1`` averages class probabilities over that many
+    dihedral views, ``tile_votes > 1`` over that many tilings of each view
     (``predict_chunk``). ``plot_dir`` saves pred-vs-truth scatters and
-    histograms of the first ``PLOT_LIMIT`` clouds and the dataset's class
+    histograms of the first ``plot_limit`` clouds and the dataset's class
     counts; ``analysis_dir`` writes ``analysis.json`` and ``confusion.png``
     (infer/analysis.py). Both need matplotlib, checked before any work."""
     tta, tile_votes = int(tta), int(tile_votes)
@@ -581,7 +702,7 @@ def evaluate_dataset(inferencer, dataset, out_csv: Optional[str] = None,
     pred_counts = np.zeros(num_classes, np.int64)
     t0 = time.time()
     n_points_total = 0
-    for idx in eval_chunks(len(dataset), tta * tile_votes):
+    for idx in eval_chunks(len(dataset), tta * tile_votes, chunk_size):
         chunk = [dataset[j] for j in idx]
         chunk_preds = predict_chunk(inferencer, [s["points"] for s in chunk], list(idx),
                                     tta, tile_votes)
@@ -600,7 +721,7 @@ def evaluate_dataset(inferencer, dataset, out_csv: Optional[str] = None,
                 # points would inflate the predicted bars only
                 pred_counts += np.bincount(np.asarray(preds).ravel()[valid_lbl],
                                            minlength=num_classes)[:num_classes]
-            if plot_dir and i < PLOT_LIMIT:
+            if plot_dir and i < plot_limit:
                 from ampnet_tpu_torch.core.plotting import (
                     plot_class_histograms,
                     plot_predictions_vs_truth,

@@ -25,19 +25,17 @@ kernel launches, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from ampnet_tpu_torch.ops import cuda_build
+from ampnet_tpu_torch.ops.launch_count import count_launch
 
 MAX_LAYERS = 4
 MAX_WIDTH = 256
 SLAB_K = 16  # K of one weight slab: two wgmma k8 steps
-# launches come from the serving worker and the dispatch pool's threads
-_count_lock = threading.Lock()
 
 
 def fold_bn(
@@ -230,8 +228,7 @@ def _launch(x, chain: PreparedChain, pool, relu_last, return_acts, lib):
             int(relu_last), ptr(acts), ptr(pooled), ptr(partial), stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_chain kernel launch failed: CUDA error {err}")
-    with _count_lock:
-        fused_mlp_chain.launches += 1
+    count_launch(fused_mlp_chain)
     return acts, pooled
 
 

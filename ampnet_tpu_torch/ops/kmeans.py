@@ -2,10 +2,11 @@
 
 Lloyd iterations whose assignment step is an entropic optimal transport
 (Sinkhorn) between points (uniform mass) and clusters (capacity mass), then an
-exact capacity-respecting rounding (per-cluster top-s on transport scores).
-Dense ``[B, N, k]`` work over a batch of clouds, with no data-dependent
-shapes and no host sync, so a bucket program enqueues it on the card and
-returns at once.
+exact capacity-respecting rounding (per-cluster top-s on transport scores) or
+the plan's argmax (``exact=False``). Dense ``[B, N, k]`` work over a batch
+of clouds, with no data-dependent shapes, no host sync and, for equal
+capacities (the tiler's), no host→device copy, so the tiled inferencer's
+bucket graph captures it whole (``infer/tiled.py``).
 
 Differences from the JAX module, both deliberate:
 
@@ -34,34 +35,49 @@ def _sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def sinkhorn_plan(
     cost: torch.Tensor,  # [..., N, k]
-    capacities: torch.Tensor,  # [k], sums to N
+    capacities: torch.Tensor,  # [k], sums to N (to the real points under a mask)
     tau,  # float, or a tensor that broadcasts against cost
     iters: int = 30,
+    point_mask: Optional[torch.Tensor] = None,  # [..., N] bool, True = a real point
 ) -> torch.Tensor:
-    """Entropic OT plan with uniform row marginals and given column marginals."""
+    """Entropic OT plan with uniform row marginals and given column marginals.
+    Masked-out rows get no mass: ``logK = -1e30`` and a zero row marginal."""
     logK = -cost / tau
     log_c = torch.log(capacities.float())
+    if point_mask is not None:
+        logK = torch.where(point_mask[..., None], logK, -1e30)
+        row_mass = point_mask.float()
+        log_r = torch.log(row_mass.clamp_min(1e-30))
     u = torch.zeros(cost.shape[:-1], device=cost.device)  # log of the unit row mass is 0
     v = torch.zeros((*cost.shape[:-2], cost.shape[-1]), device=cost.device)
     for _ in range(iters):
         # column scaling then row scaling in log space
         v = log_c - torch.logsumexp(logK + u[..., :, None], dim=-2)
-        u = -torch.logsumexp(logK + v[..., None, :], dim=-1)
-    return torch.exp(logK + u[..., :, None] + v[..., None, :])
+        lse = torch.logsumexp(logK + v[..., None, :], dim=-1)
+        u = -lse if point_mask is None else log_r - lse
+    plan = torch.exp(logK + u[..., :, None] + v[..., None, :])
+    # a masked row's u grows to ~1e30 and logK + u cancels in float32: the
+    # row mass sets it to exactly zero, as the JAX module does
+    return plan if point_mask is None else plan * row_mass[..., None]
 
 
 def round_balanced(
     scores: torch.Tensor,  # [..., N, k] higher = stronger affinity
     capacities: Tuple[int, ...],
+    point_mask: Optional[torch.Tensor] = None,  # [..., N] bool, True = a real point
 ) -> torch.Tensor:
     """Exact capacity-respecting hard assignment: each cluster in turn claims
     its top-``capacity`` still-available points. Leftover points (when
-    ``sum(capacities) < N``) get −1."""
+    ``sum(capacities) < N``) and masked-out points get −1."""
     k = scores.shape[-1]
     caps = tuple(int(c) for c in capacities)
     neg = float("-inf")
     assign = torch.full(scores.shape[:-1], -1, dtype=torch.int32, device=scores.device)
-    avail = torch.ones(scores.shape[:-1], dtype=torch.bool, device=scores.device)
+    if point_mask is None:
+        avail = torch.ones(scores.shape[:-1], dtype=torch.bool, device=scores.device)
+    else:
+        scores = torch.where(point_mask[..., None], scores, neg)
+        avail = point_mask.clone()
     for c in range(k):
         s = torch.where(avail, scores[..., c], neg)
         idx = torch.sort(s, dim=-1, descending=True, stable=True).indices[..., : caps[c]]
@@ -101,16 +117,22 @@ def balanced_kmeans(
     capacities: Optional[Tuple[int, ...]] = None,  # default N/k each
     lloyd_iters: int = 10,
     sinkhorn_iters: int = 30,
+    exact: bool = True,
+    point_mask: Optional[torch.Tensor] = None,  # [..., N] bool, True = a real point
     lloyd_mode: str = "sinkhorn",
     init_idx: Optional[torch.Tensor] = None,  # [..., k] initial centroid indices
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (assignment [..., N] int32, centroids [..., k, F]).
 
-    Every cluster gets exactly its capacity. ``lloyd_mode``
-    'sinkhorn' balances inside every Lloyd iteration; 'argmin' runs plain
-    Lloyd steps and balances once at the end. The initial centroids are
-    ``feats[init_idx]``, by default the first k of a random permutation drawn
-    from ``generator`` (which must live on ``feats``' device).
+    With ``exact`` every cluster gets exactly its capacity; without, each
+    point takes the argmax of the balanced plan, so sizes are about the
+    capacities. ``lloyd_mode`` 'sinkhorn' balances inside every Lloyd
+    iteration; 'argmin' runs plain Lloyd steps and balances once at the end.
+    Masked-out points (``point_mask`` False) carry no mass and get −1; the
+    capacities must then be given, since the padded N does not size them.
+    The initial centroids are ``feats[init_idx]``, by default the first k of
+    a random permutation drawn from ``generator`` (which must live on
+    ``feats``' device).
 
     Leading dimensions are a batch of independent clouds (the JAX bucket
     program vmaps this function): every reduction runs over one cloud's own
@@ -121,6 +143,8 @@ def balanced_kmeans(
     if lloyd_mode not in ("sinkhorn", "argmin"):
         raise ValueError(f"unknown lloyd_mode {lloyd_mode!r}")
     if capacities is None:
+        if point_mask is not None:
+            raise ValueError("balanced_kmeans with point_mask requires explicit capacities")
         capacities = tuple(n // k + (1 if i < n % k else 0) for i in range(k))
     if len(set(capacities)) == 1:  # the tiler's case: no host→device copy
         cap_arr = torch.full((k,), float(capacities[0]), device=dev)
@@ -136,7 +160,7 @@ def balanced_kmeans(
         feats, -2, init_idx[..., None].expand(*init_idx.shape, feats.shape[-1]))
 
     def balanced_update(cost, tau):
-        plan = sinkhorn_plan(cost, cap_arr, tau, sinkhorn_iters)
+        plan = sinkhorn_plan(cost, cap_arr, tau, sinkhorn_iters, point_mask)
         # capacity-weighted centroid update (plan columns sum to capacities)
         w = plan / plan.sum(dim=-2, keepdim=True).clamp_min(1e-30)
         return plan, _cluster_sums(w, feats)
@@ -147,7 +171,11 @@ def balanced_kmeans(
     if lloyd_mode == "argmin":
         for _ in range(lloyd_iters):
             cost = _sqdist(feats, centroids)
+            if point_mask is not None:
+                cost = torch.where(point_mask[..., None], cost, float("inf"))
             onehot = torch.nn.functional.one_hot(cost.argmin(dim=-1), k).float()
+            if point_mask is not None:
+                onehot = onehot * point_mask[..., None].float()
             sums = _cluster_sums(onehot, feats)
             counts = onehot.sum(dim=-2)[..., None]
             # empty clusters keep their previous centroid
@@ -160,7 +188,12 @@ def balanced_kmeans(
             cost = _sqdist(feats, centroids)
             plan, centroids = balanced_update(cost, cost_scale(cost) * _anneal(i, lloyd_iters))
 
-    return round_balanced(plan, capacities), centroids
+    if exact:
+        return round_balanced(plan, capacities, point_mask), centroids
+    assign = plan.argmax(dim=-1).to(torch.int32)
+    if point_mask is not None:
+        assign = torch.where(point_mask, assign, -1)
+    return assign, centroids
 
 
 def cluster_sizes(assign: torch.Tensor, k: int) -> torch.Tensor:

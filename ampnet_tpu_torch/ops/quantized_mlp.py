@@ -41,13 +41,13 @@ with a separately rounded product and sum (no fused multiply-add).
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from ampnet_tpu_torch.ops import cuda_build
+from ampnet_tpu_torch.ops.launch_count import count_launch
 
 MAX_LAYERS = 4
 MAX_WIDTH = 256
@@ -56,8 +56,6 @@ QMAX = 127.0
 # an fp32 matmul of integer-valued operands is exact in any summation order
 # while every partial sum stays below 2**24
 EXACT_INT_SUM = 1 << 24
-# launches come from the serving worker and the dispatch pool's threads
-_count_lock = threading.Lock()
 
 
 def _pick_block_windows(m: int, n: int, cmax: int, dtype_bytes: int = 4) -> int:
@@ -292,8 +290,7 @@ def _launch(x, chain: PreparedQuantizedChain, pool, relu_last, return_acts, g, l
             ptr(acts), ptr(pooled), ptr(xq), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"quantized_mlp_chain kernel launch failed: CUDA error {err}")
-    with _count_lock:
-        quantized_mlp_chain.launches += 1
+    count_launch(quantized_mlp_chain)
     return acts, pooled
 
 

@@ -184,7 +184,24 @@ the run (non-zero exit, no result line) when it does not hold:
    the CPU (``zero``, and ``duplicate`` from one index draw), and
    ``scan_for_towers`` on phase 8's first tile. The ``bench:`` line prints
    every number beside the card;
-14. results -- one ``{"kernels": [...]}`` line, then as the last line
+14. bucket graphs (``graph_phase``): each tiled-inference bucket is captured
+   once as a CUDA graph and replayed (``infer/tiled.py``). (a) Under
+   ``fused``, ``int8`` and ``xla`` at the k = 18 and k = 9 buckets of cap
+   4096 and a k = 1 one, and a stacked pair and two shards on ``cuda:0``
+   under ``fused`` at the k = 18 one, with probabilities off and on: every
+   call's labels and float16 probabilities equal, element for element, the
+   eager body on the inputs that call was given, the capturing call and two
+   replays (the second with other clouds, so the static inputs are re-read);
+   (b) the CUDA runtime calls a warm dispatch enqueues (torch.profiler): one
+   ``cudaGraphLaunch`` per bucket, and under 50 kernel and copy enqueues
+   for a 1-cloud ``fused`` request, beside the eager body's; (c) a traced
+   replay names the ``fused_mlp_chain`` kernel (``chain_kernel`` of a
+   ``Chain``) under ``fused`` and the int8 chain and absmax kernels under
+   ``int8``, and the counters grow by 4, and by 2 + 2, per replayed bucket
+   forward; (d) the capture ms of each shape, the graphs held, the cold
+   count equal to the graphs captured, and the memory reserved. The
+   ``graphs:`` line prints every number beside the card;
+15. results -- one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -871,8 +888,9 @@ def serve_phase(model, cfg, backend: str, device: str = "cuda", ckpt=None):
                 f"{name} {launches[name]} (= {per} x {forwards} bucket forwards)"
                 for name, per in LAUNCHES_PER_FORWARD[backend].items()))
             if backend == "fused" and details:
-                warm_round(run_clients, served)
-                _say("  breakdown: " + json.dumps(request_breakdown(inferencer, clouds[:4])))
+                round_ = warm_round(run_clients, served, inferencer)
+                _say("  breakdown: " + json.dumps(request_breakdown(inferencer, clouds[:4],
+                                                                    round_)))
         finally:
             inferencer.dispatch_many, inferencer.fetch_many = dispatch, fetch
             server.close()
@@ -880,15 +898,24 @@ def serve_phase(model, cfg, backend: str, device: str = "cuda", ckpt=None):
     return launches, forwards, served, clouds
 
 
-def warm_round(run_clients, served):
-    """The same traffic again, every shape now warm, with the card traced
-    (kernel activity only): the share of the round's wall time in which no
-    kernel ran."""
+def warm_round(run_clients, served, inferencer, tries=3) -> dict:
+    """The same traffic again with the card traced (kernel activity only):
+    the share of the round's wall time in which no kernel ran (and its wall
+    and busy ms, and the kernels run). A round is warm when it ran no new
+    bucket shape (a micro-batch's size depends on arrival times, and a new
+    padded size captures a graph); up to ``tries`` rounds are run until one
+    is, and the new shapes of each are reported."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again, wall = run_clients()
-        torch.cuda.synchronize()
+    new_shapes = []
+    for _ in range(tries):
+        cold = inferencer.cold_programs_seen
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again, wall = run_clients()
+            torch.cuda.synchronize()
+        new_shapes.append(inferencer.cold_programs_seen - cold)
+        if not new_shapes[-1]:
+            break
     if sorted(again) != sorted(served) or any(again[c].shape != served[c].shape for c in served):
         raise RuntimeError("the warm round's answers do not cover the same clouds")
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -896,7 +923,10 @@ def warm_round(run_clients, served):
     idle = f"{1.0 - busy / (wall * 1e3):.4f}" if busy > 0 else "not measured"
     _say(f"  warm round, traced: {sum(SERVE_CLOUD_POINTS)} points from 3 clients in "
          f"{wall * 1e3:.2f} ms; device busy {busy:.2f} ms; idle share {idle}; "
-         f"{sum(e.count for e in kernels)} kernels")
+         f"{sum(e.count for e in kernels)} kernels; new shapes by round {new_shapes}")
+    return {"points": sum(SERVE_CLOUD_POINTS), "clients": 3, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy, "idle_share": idle,
+            "kernels": sum(e.count for e in kernels), "new_shapes_by_round": new_shapes}
 
 
 def check_served(inferencer, cfg, clouds, served, calls, fetched):
@@ -932,14 +962,16 @@ def check_served(inferencer, cfg, clouds, served, calls, fetched):
          "with each cloud predicted alone: " + json.dumps(agree))
 
 
-def request_breakdown(inferencer, clouds) -> dict:
+def request_breakdown(inferencer, clouds, round_) -> dict:
     """Where a warm served request's time goes, in ms: ``dispatch_many``
     must return without a host sync (CUDA sync debug mode raises on one), so
     its host time is the enqueue cost; the tiling and the forward of one
-    cloud are then timed alone, the int8 forward of the same windows beside
-    the served one, and a request of one cloud beside one of ``len(clouds)``
-    clouds in one bucket: host enqueue beside device span (CUDA events), and
-    the kernels' summed device time from torch.profiler."""
+    cloud are then timed alone (eagerly, as the bucket's graph captured
+    them), the int8 forward of the same windows beside the served one, and
+    a request of one cloud beside one of ``len(clouds)`` clouds in one
+    bucket: host enqueue beside device span (CUDA events), the kernels'
+    summed device time and the host's kernel and copy enqueues from
+    torch.profiler. ``round_`` (``warm_round``) joins the line."""
     from torch.profiler import ProfilerActivity, profile
 
     from ampnet_tpu_torch.infer.tiled import KMEANS_FEATURE_IDX
@@ -953,6 +985,9 @@ def request_breakdown(inferencer, clouds) -> dict:
     cap = inferencer._cap_for(n, k)
     out = {"points": n, "k": k, "cap": cap}
 
+    # every shape warm first: a bucket graph's capture synchronizes the card once
+    inferencer.predict_many(list(clouds), seeds=[0] * len(clouds))
+    inferencer.predict_many([cloud], seeds=[0])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -964,6 +999,14 @@ def request_breakdown(inferencer, clouds) -> dict:
     t0 = time.perf_counter()
     inferencer.fetch_many(handle)
     out[f"fetch_wait_ms_x{len(clouds)}"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        handle = inferencer.dispatch_many([cloud], seeds=[0])
+        out["dispatch_host_ms_x1"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    inferencer.fetch_many(handle)
 
     rows = np.concatenate([cloud, cloud[np.random.default_rng(0).integers(0, n, k * cap - n)]])
     feats = torch.from_numpy(rows[:, list(KMEANS_FEATURE_IDX)]).to(dev)
@@ -1010,10 +1053,15 @@ def request_breakdown(inferencer, clouds) -> dict:
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         out[name]["kernel_launches"] = sum(e.count for e in kernels)
         out[name]["device_busy_ms"] = busy if busy > 0 else "not measured"
+        host = {e.key: e.count for e in prof.key_averages()
+                if e.device_type.name == "CPU" and e.key.startswith("cu")}
+        out[name]["host_enqueues"] = enqueues(host)
+        out[name]["graph_launches"] = host.get("cudaGraphLaunch", 0)
         top = {}
         for e in kernels:  # kernels whose names share 60 characters are summed
             top[e.key[:60]] = top.get(e.key[:60], 0.0) + e.self_device_time_total / 1e3
         out[name]["top_kernels_ms"] = dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])
+    out["warm_round"] = round_
     return out
 
 
@@ -1518,32 +1566,38 @@ def write_eval_clouds(folder, seed=SEED):
 
 @contextlib.contextmanager
 def eval_probe():
-    """While the command lines run: each TiledInferencer bucket forward is
+    """While the command lines run: each TiledInferencer bucket forward (a
+    call of a bucket's runner: its graph's capturing call or a replay) is
     counted with its ensemble size, and the labels predict_many returns are
     recorded in call order."""
     from ampnet_tpu_torch.infer.tiled import TiledInferencer
 
     rec = {"forwards": 0, "ensembles": set(), "labels": []}
     lock = threading.Lock()
-    run_bucket, predict_many = TiledInferencer._run_bucket, TiledInferencer.predict_many
+    bucket_fn, predict_many = TiledInferencer._bucket_fn, TiledInferencer.predict_many
 
-    def counted_run_bucket(self, *args):
-        with lock:  # buckets of one dispatch run on a thread each
-            rec["forwards"] += 1
-            rec["ensembles"].add(self.ensemble)
-        return run_bucket(self, *args)
+    def counted_bucket_fn(self, *key):
+        run = bucket_fn(self, *key)
+
+        def counted(*args):
+            with lock:  # buckets of one dispatch run on a thread each
+                rec["forwards"] += 1
+                rec["ensembles"].add(self.ensemble)
+            return run(*args)
+
+        return counted
 
     def recorded_predict_many(self, clouds, seeds=None, return_probs=False, init_idx=None):
         out = predict_many(self, clouds, seeds, return_probs, init_idx)
         rec["labels"] += [o[0] if return_probs else o for o in out]
         return out
 
-    TiledInferencer._run_bucket = counted_run_bucket
+    TiledInferencer._bucket_fn = counted_bucket_fn
     TiledInferencer.predict_many = recorded_predict_many
     try:
         yield rec
     finally:
-        TiledInferencer._run_bucket, TiledInferencer.predict_many = run_bucket, predict_many
+        TiledInferencer._bucket_fn, TiledInferencer.predict_many = bucket_fn, predict_many
 
 
 def eval_cli(run, argv):
@@ -3589,6 +3643,218 @@ def bench_phase(dev, card, work) -> dict:
     return launches
 
 
+# phase 14: the bucket graphs, at the serving path's bucket shapes (k = 18
+# and k = 9 of cap 4096 at n_points 2048) and a whole-cloud one (k = 1)
+GRAPH_CLOUD_POINTS = (50_000, 20_000, 3_000)
+# (a)'s inferencers: backend, stacked members, devices
+GRAPH_RUNS = {
+    "fused": ("fused", 1, ("cuda:0",)),
+    "int8": ("int8", 1, ("cuda:0",)),
+    "xla": ("xla", 1, ("cuda:0",)),
+    "stacked_fused": ("fused", 2, ("cuda:0",)),
+    "shards_fused": ("fused", 1, ("cuda:0", "cuda:0")),
+}
+GRAPH_REPLAYS = 3  # replayed bucket forwards counted in (c)
+MAX_REQUEST_ENQUEUES = 50  # kernel and copy enqueues of a warm 1-cloud request
+# the CUDA runtime calls that put work on a stream
+ENQUEUE_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+                    "cuMemset", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+@contextlib.contextmanager
+def graph_check():
+    """While on: every bucket-graph call is held against the eager body on
+    the inputs that call was given (copied to the card afresh): its labels
+    and float16 probabilities element for element. Yields the record of
+    calls (replayed or capturing, equal, shape)."""
+    from ampnet_tpu_torch.infer.tiled import _BucketGraph
+
+    calls, lock = [], threading.Lock()
+    call = _BucketGraph.__call__
+
+    def checked(self, *args):
+        with lock:  # no other call of a graph between this one and its check
+            replay = self.graph is not None
+            flat, pflat, event = call(self, *args)
+            event.synchronize()
+            with torch.inference_mode(), torch.cuda.device(self.device):
+                want = self.body(*(None if t is None else t.to(self.device) for t in args))
+                want = [None if t is None else t.cpu() for t in want]
+            equal = torch.equal(flat, want[0]) and (
+                pflat is None if want[1] is None else torch.equal(pflat, want[1]))
+            calls.append({"replay": replay, "equal": equal, "shape": list(flat.shape),
+                          "probs": pflat is not None})
+            return flat, pflat, event
+
+    _BucketGraph.__call__ = checked
+    try:
+        yield calls
+    finally:
+        _BucketGraph.__call__ = call
+
+
+def traced_calls(call, steps=2) -> tuple:
+    """torch.profiler over ``steps`` calls after a warm-up one (read when the
+    recorded steps end: a later trace in a process loses its first kernel
+    records) → (CUDA runtime calls by name, device operations by name), each
+    a count per call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    host, device = {}, {}
+
+    def ready(prof):
+        for e in prof.key_averages():
+            if e.key.startswith("ProfilerStep"):
+                continue
+            if e.device_type.name == "CUDA":
+                device[e.key] = device.get(e.key, 0) + e.count / steps
+            elif e.key.startswith("cu"):
+                host[e.key] = host.get(e.key, 0) + e.count / steps
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps), on_trace_ready=ready) as prof:
+        for _ in range(1 + steps):
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+    return host, device
+
+
+def enqueues(host: dict) -> float:
+    return sum(n for name, n in host.items() if name.startswith(ENQUEUE_PREFIXES))
+
+
+def graph_clouds(rng, sizes=GRAPH_CLOUD_POINTS):
+    out = []
+    for n in sizes:
+        c = rng.normal(size=(n, 9)).astype(np.float32) * 0.5
+        c[:, :2] = rng.uniform(-1.0, 1.0, size=(n, 2))
+        out.append(c)
+    return out
+
+
+def graph_phase(model, cfg, dev, card) -> dict:
+    """Phase 14: (a)-(d) of the module docstring → the launches of (c)'s
+    replayed bucket forwards by run."""
+    from ampnet_tpu_torch.infer.tiled import TiledInferencer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    first, other = graph_clouds(rng), graph_clouds(rng)
+    # the stacked pair's second member: the model, every weight perturbed
+    second = copy.deepcopy(model)
+    g = torch.Generator().manual_seed(SEED + 14)
+    with torch.no_grad():
+        for p in second.parameters():
+            p.add_(torch.randn(p.shape, generator=g).to(p.device) * 1e-3)
+    out = {"card": card, "a_replay_vs_eager": {}, "d_cache": {}}
+    inferencers = {}
+    mem0 = torch.cuda.memory_reserved()
+
+    # (a) every call against the eager body on its own inputs
+    with graph_check() as calls:
+        for run, (backend, members, devices) in GRAPH_RUNS.items():
+            tt = TiledInferencer(model if members == 1 else [model, second], cfg,
+                                 backend=backend, devices=list(devices))
+            inferencers[run] = tt
+            # two shards: three 50,000-point clouds in one bucket, padded to 4;
+            # the stacked pair: the 50,000-point bucket alone
+            if len(devices) > 1:
+                sets = [[first[0], other[0], first[0]], [other[0], first[0], other[0]]]
+            elif members > 1:
+                sets = [first[:1], other[:1]]
+            else:
+                sets = [first, other]
+            start = len(calls)
+            for probs in (False, True):
+                for clouds in (sets[0], sets[0], sets[1]):
+                    tt.predict_many(clouds, seeds=list(range(len(clouds))), return_probs=probs)
+            mine = calls[start:]
+            replays = sum(c["replay"] for c in mine)
+            out["a_replay_vs_eager"][run] = {
+                "calls": len(mine), "replays": replays,
+                "equal": sum(c["equal"] for c in mine),
+                "shapes": sorted({str(c["shape"]) for c in mine})}
+            graphs = [r for r in tt._runners.values() if r.graph is not None]
+            if not all(c["equal"] for c in mine):
+                raise RuntimeError(f"(a) {run}: a bucket graph differs from the eager body: "
+                                   + json.dumps([c for c in mine if not c["equal"]]))
+            if replays != len(mine) - len(graphs) or replays < 2 * len(graphs):
+                raise RuntimeError(f"(a) {run}: {replays} replays of {len(mine)} calls and "
+                                   f"{len(graphs)} graphs")
+            out["d_cache"][run] = {
+                "graphs": len(graphs), "cold_programs_seen": tt.cold_programs_seen,
+                "capture_ms": {f"k{k}_cap{cap}_probs{int(p)}_b{b}": r.capture_ms
+                               for (_, k, cap, p, b), r in tt._runners.items()}}
+            if len(graphs) != tt.cold_programs_seen:
+                raise RuntimeError(f"(d) {run}: {len(graphs)} graphs captured, "
+                                   f"{tt.cold_programs_seen} cold program shapes")
+    _say("  (a) " + json.dumps(out["a_replay_vs_eager"]))
+
+    # (b) what a warm dispatch enqueues from the host
+    fused = inferencers["fused"]
+    host3, _ = traced_calls(lambda: fused.predict_many(first, seeds=[0, 1, 2]))
+    host1, _ = traced_calls(lambda: fused.predict_many(first[:1], seeds=[0]))
+    runner = fused._runners[(fused.devices[0], 18, 4096, False, 1)]
+
+    def eager_body():
+        with torch.inference_mode():
+            runner.body(*runner.inputs)
+
+    host_eager, _ = traced_calls(eager_body)
+    out["b_enqueues"] = {
+        "dispatch_3_buckets": {"graph_launches": host3.get("cudaGraphLaunch", 0),
+                               "enqueues": enqueues(host3)},
+        "request_1_cloud": {"enqueues": enqueues(host1), "by_call": host1},
+        "eager_body_1_cloud": {"enqueues": enqueues(host_eager),
+                               "by_call": {k: v for k, v in host_eager.items()
+                                           if k.startswith(ENQUEUE_PREFIXES)}}}
+    _say("  (b) " + json.dumps(out["b_enqueues"]))
+    if host3.get("cudaGraphLaunch", 0) != 3 or host1.get("cudaGraphLaunch", 0) != 1:
+        raise RuntimeError("(b) a warm dispatch did not launch one graph per bucket")
+    if not 0 < enqueues(host1) < MAX_REQUEST_ENQUEUES:
+        raise RuntimeError(f"(b) a warm 1-cloud request enqueued {enqueues(host1)} kernels "
+                           f"and copies, want fewer than {MAX_REQUEST_ENQUEUES}")
+
+    # (c) the kernels inside a replay, and the counters per replayed forward
+    launches = {}
+    for run in ("fused", "int8"):
+        tt = inferencers[run]
+        _, device = traced_calls(lambda: tt.predict_many(first[:1], seeds=[0]))
+        chains = {k: n for k, n in device.items() if "chain_kernel" in k}
+        want = LAUNCHES_PER_FORWARD[run]
+        # csrc/fused_mlp.cu's kernel takes a Chain, one a call; a call of
+        # csrc/quantized_mlp.cu runs one absmax_kernel, then its passes
+        fused_k = sum(n for k, n in chains.items() if "Chain" in k)
+        int8_k = sum(n for k, n in chains.items() if "Params" in k)
+        absmax = sum(n for k, n in device.items() if "absmax_kernel" in k)
+        reset_launches()  # the main path's run starts here
+        for _ in range(GRAPH_REPLAYS):
+            tt.predict_many(first[:1], seeds=[0])
+        counts = launch_counts()  # ... and ends here
+        launches[f"graph_replays_{run}"] = counts
+        out[f"c_{run}"] = {"traced_per_replay": {"fused_chain_kernel": fused_k,
+                                                 "int8_chain_kernel_passes": int8_k,
+                                                 "absmax_kernel": absmax},
+                           "kernel_names": sorted(k[:80] for k in chains),
+                           "launches": counts, "replays": GRAPH_REPLAYS}
+        if fused_k != want["fused_mlp_chain"] or absmax != want["quantized_mlp_chain"] or (
+                int8_k < absmax or (int8_k > 0) != (absmax > 0)):
+            raise RuntimeError(f"(c) {run}: a traced replay ran {chains} and {absmax} absmax "
+                               f"kernels, want {want}")
+        if counts != {k: v * GRAPH_REPLAYS for k, v in want.items()}:
+            raise RuntimeError(f"(c) {run}: {GRAPH_REPLAYS} replays counted {counts}")
+    _say("  (c) " + json.dumps({k: v for k, v in out.items() if k.startswith("c_")}))
+
+    out["d_cache"]["memory_reserved_gib"] = {"before": mem0 / 2**30,
+                                             "after": torch.cuda.memory_reserved() / 2**30}
+    _say("  (d) " + json.dumps(out["d_cache"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    _say("graphs: " + json.dumps(out))
+    del inferencers
+    return launches
+
+
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, and the host
     solver by ``g++``, all started together, and loaded."""
@@ -3620,57 +3886,63 @@ def main() -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     _say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    _say("[1/14] card")
+    _say("[1/15] card")
     card = card_line()
     _say(card)
 
-    _say("[2/14] build")
+    _say("[2/15] build")
     build_phase()
 
     cfg = AMPNetConfig()
     model = seeded_model(cfg).to(dev)
 
-    _say("[3/14] kernels against their plain versions")
+    _say("[3/15] kernels against their plain versions")
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
 
-    _say("[4/14] model: fused and int8 against the module forward")
+    _say("[4/15] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
 
-    _say("[5/14] serve")
+    _say("[5/15] serve")
     runs = {backend: serve_phase(model, cfg, backend) for backend in LAUNCHES_PER_FORWARD}
 
     cuda_build.BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD) as work:
-        _say("[6/14] train")
+        _say("[6/15] train")
         train_launches, ckpt = train_phase(dev, card, work)
 
-        _say("[7/14] evaluate")
+        _say("[7/15] evaluate")
         eval_launches = evaluate_phase(ckpt, dev, card, work)
+        # the bucket graphs of phases 5-7 hold their static outputs in the pool
+        _say(f"  memory reserved after evaluate: {torch.cuda.memory_reserved() / 2**30:.3f} "
+             f"GiB (largest so far {torch.cuda.max_memory_reserved() / 2**30:.3f} GiB)")
 
-        _say("[8/14] tiles: host data stages, whole-tile infer, demo")
+        _say("[8/15] tiles: host data stages, whole-tile infer, demo")
         tile_launches, tiles_data = tiles_phase(ckpt, dev, card, work)
         eval_launches.update(tile_launches)
 
-        _say("[9/14] families: gru, classification, baseline, classic, pointnet2")
+        _say("[9/15] families: gru, classification, baseline, classic, pointnet2")
         families_phase(ckpt, dev, card, work)
 
-        _say("[10/14] geometry: eigenfeature columns, edge block, geom tokens, distillation")
+        _say("[10/15] geometry: eigenfeature columns, edge block, geom tokens, distillation")
         geom_launches, geom_rows = geometry_phase(os.path.join(work, "tiles"), tiles_data,
                                                      dev, card, work)
 
-        _say("[11/14] parallel: sharded steps, two ranks, sharded serving, window axis")
+        _say("[11/15] parallel: sharded steps, two ranks, sharded serving, window axis")
         par_launches = parallel_phase(model, cfg, dev, card, work)
 
-        _say("[12/14] training options: bf16, remat, oversampling, weights, dispatch, "
+        _say("[12/15] training options: bf16, remat, oversampling, weights, dispatch, "
              "host batcher")
         option_launches = options_phase(dev, card, work)
 
-        _say("[13/14] bench and observability: bench, profiling, logging, tiling, scanner")
+        _say("[13/15] bench and observability: bench, profiling, logging, tiling, scanner")
         bench_launches = bench_phase(dev, card, work)
 
-    _say("[14/14] results")
+    _say("[14/15] bucket graphs: replay against the eager body, enqueues, kernels, cache")
+    graph_launches = graph_phase(model, cfg, dev, card)
+
+    _say("[15/15] results")
     # launches only where the serving runs counted them: each kernel in both
     # runs, and each serving chain once per bucket forward that ran it (its M
     # there is 18 x clouds in the bucket); the other cases are shapes the
@@ -3707,6 +3979,9 @@ def main() -> int:
                 total["launches_by_run"][run] = counts[name]
         # phase 13 checked 0 on the bench's train arms and under xla
         total["launches_by_run"]["bench_train_xla"] = 0
+        for run, counts in graph_launches.items():  # phase 14 (c): replayed bucket forwards
+            if counts[name]:
+                total["launches_by_run"][run] = counts[name]
         total["launches"] = sum(total["launches_by_run"].values())
     # the serve: chains ran once a bucket forward of phase 5, the bench: chains
     # once a bench forward of phase 13; the T-Nets run under both backends

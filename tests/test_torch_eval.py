@@ -59,10 +59,11 @@ class Recorder:
     returns; with ``init`` the port's k-means starts where JAX's does."""
 
     def __init__(self, inner, init=False):
-        self.inner, self.init, self.labels = inner, init, []
+        self.inner, self.init, self.labels, self.batches = inner, init, [], []
         self.cfg, self.n_points = inner.cfg, inner.n_points
 
     def predict_many(self, clouds, seeds=None, return_probs=False):
+        self.batches.append(len(clouds))
         kw = {}
         if self.init:
             kw["init_idx"] = [_jax_init(c.shape[0], s, self.n_points)
@@ -213,6 +214,31 @@ def test_evaluate_dataset_matches_jax(models, cloud_dir, tmp_path, backend, tta,
     assert ja[0] == jb[0] and len(ja) == len(jb) == 2
     for ra, rb in zip(a["per_cloud"], b["per_cloud"]):
         _assert_same_metrics(ra, rb, 1e-6 if exact else 1e-2)
+
+
+def test_evaluate_dataset_chunk_size_and_plot_limit_match_jax(models, cloud_dir, tmp_path):
+    """A non-default ``plot_limit`` and ``chunk_size``, passed by position in
+    JAX's order, give JAX's chunks, CSV row and figures."""
+    jm, vs, ports = models
+    jcfg, pcfg = _cfgs()
+    folder, names = cloud_dir
+    ds = datasets.EvalCloudDataset(str(folder), names)
+    ref = Recorder(jtiled.TiledInferencer(jm, vs[0], jcfg))
+    port = Recorder(TiledInferencer(ports[0], pcfg, device="cpu"), init=True)
+    for fn, rec, tag in ((jtiled.evaluate_dataset, ref, "jax"), (evaluate_dataset, port, "port")):
+        fn(rec, ds, str(tmp_path / f"{tag}.csv"), "m", str(tmp_path / f"{tag}_plots"), 1, 3)
+    assert ref.batches == port.batches == [3, 1]
+    assert min((x == y).mean() for x, y in zip(ref.labels, port.labels)) == 1.0
+    ja, jb = _csv_rows(tmp_path / "jax.csv"), _csv_rows(tmp_path / "port.csv")
+    assert ja[0] == jb[0] and len(ja) == len(jb) == 2
+    timing = [ja[0].index(k) for k in TIMING]
+    for i, (x, y) in enumerate(zip(ja[1], jb[1])):
+        if i not in timing:
+            assert x == y or abs(float(x) - float(y)) <= 1e-6, (ja[0][i], x, y)
+    figures = {tag: sorted(p.name for p in (tmp_path / f"{tag}_plots").iterdir())
+               for tag in ("jax", "port")}
+    assert figures["jax"] == figures["port"] == sorted(
+        [f"{names[0]}.png", f"{names[0]}_hist.png", "class_counts.png"])
 
 
 def test_evaluate_dataset_validates_views_and_draws(models, cloud_dir, tmp_path):

@@ -155,3 +155,178 @@ def test_tta_matches_jax(pair):
         assert np.array_equal(dihedral_xy(cloud, t)[:, 2:], cloud[:, 2:])
     with pytest.raises(ValueError):
         tta_ensemble(lambda c, s: None, [cloud], 9)
+
+
+@pytest.mark.parametrize("case", ["min_size", "point_mask_sinkhorn", "point_mask_argmin"])
+def test_balanced_kmeans_exact_and_point_mask_match_jax(case):
+    """``exact=False`` (the plan's argmax) and ``point_mask`` (no mass, −1)
+    on the cases of JAX's own tests (tests/test_ops.py), from JAX's start."""
+    rng = np.random.default_rng(0)
+    key = jax.random.PRNGKey(0)
+    if case == "min_size":
+        feats = rng.normal(size=(700, 3)).astype(np.float32)
+        kw, k, mask = dict(exact=False), 3, None
+    else:
+        feats = np.zeros((128, 2), np.float32)
+        feats[:100] = rng.normal(size=(100, 2))
+        feats[100:] = 1e6
+        mask = np.arange(128) < 100
+        kw = dict(capacities=(50, 50), lloyd_mode=case.rpartition("_")[2])
+        k = 2
+    jmask = None if mask is None else jnp.asarray(mask)
+    ja, jc = j_balanced_kmeans(jnp.asarray(feats), k, key, point_mask=jmask, **kw)
+    init = np.array(jax.random.permutation(key, feats.shape[0])[:k])
+    ta, tc = balanced_kmeans(torch.from_numpy(feats), k, init_idx=torch.from_numpy(init),
+                             point_mask=None if mask is None else torch.from_numpy(mask), **kw)
+    ja, ta = np.asarray(ja), ta.numpy()
+    assert ta.dtype == np.int32 and (ta == ja).mean() >= 0.999
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4, atol=1e-3)
+    if mask is None:
+        sizes = np.bincount(ta, minlength=k)
+        assert sizes.sum() == 700 and (sizes > 0.5 * 700 / 3).all()
+    else:
+        assert (ta[100:] == -1).all()
+        assert sorted(np.bincount(ta[:100]).tolist()) == [50, 50]
+    with pytest.raises(ValueError, match="explicit capacities"):
+        balanced_kmeans(torch.from_numpy(feats), k, point_mask=torch.ones(feats.shape[0], dtype=bool))
+
+
+def test_batch_padding_and_cold_programs_match_jax(pair):
+    """Micro-batches of 3, 4, 2 and 1 clouds of one bucket pad to JAX's power
+    of two: the same program shapes run, and are counted cold, as in JAX;
+    the 3-cloud batch (padded with a copy of its first cloud) keeps JAX's
+    labels."""
+    (jm, v, jcfg), (model, pcfg) = pair
+    jt = JTiled(jm, v, jcfg)
+    tt = TiledInferencer(model, pcfg, device="cpu")
+    rng = np.random.default_rng(14)
+    sizes = (200, 210, 220, 230)  # k = 3, cap 128: one bucket
+    clouds = [rng.normal(size=(n, 9)).astype(np.float32) for n in sizes]
+    for b in (3, 4, 2, 1):
+        seeds = list(range(b))
+        ref = jt.predict_many(clouds[:b], seeds)
+        out = tt.predict_many(clouds[:b], seeds,
+                              init_idx=[_jax_init(n, s) for n, s in zip(sizes, seeds)])
+        if b == 3:
+            for jl, tl in zip(ref, out):
+                assert (tl == jl).mean() >= 0.999
+        assert tt._warm_shapes == jt._warm_shapes
+        assert tt.cold_programs_seen == jt.cold_programs_seen
+    assert tt._warm_shapes == {(3, 128, False, b) for b in (4, 2, 1)}
+
+
+@pytest.mark.parametrize("b", [1, 3, 5])
+def test_sharded_batch_pads_as_jax(pair, b):
+    """Over two devices a bucket of b clouds pads to JAX's
+    ceil(pow2(b) / nd) · nd rows in contiguous shards, and its labels equal
+    one device's."""
+    (_, _, _), (model, pcfg) = pair
+    nd = 2
+    b_pad = -(-(1 << (b - 1).bit_length()) // nd) * nd  # ampnet_tpu/infer/tiled.py:459-465
+    sharded = TiledInferencer(model, pcfg, device="cpu", devices=["cpu", "cpu"])
+    rng = np.random.default_rng(15)
+    clouds = [rng.normal(size=(100, 9)).astype(np.float32) for _ in range(b)]  # k = 1
+    handle = sharded.dispatch_many(clouds)
+    per = b_pad // nd
+    assert [idxs for idxs, _ in handle["pending"]] == [list(range(b))[:per],
+                                                       list(range(b))[per:]]
+    assert [out[0].shape[0] for _, out in handle["pending"]] == [per, per]
+    assert sharded._warm_shapes == {(1, 128, False, b_pad)}
+    got = sharded.fetch_many(handle)
+    want = TiledInferencer(model, pcfg, device="cpu").predict_many(clouds)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("probs", [False, True])
+@pytest.mark.parametrize("case", ["tiled", "k1", "stacked"])
+def test_bucket_fn_on_cpu_is_the_eager_body(pair, case, probs):
+    """On the CPU a bucket's runner is the eager body: its outputs equal
+    ``_run_bucket``'s bit for bit, and no graph is made."""
+    (_, _, _), (model, pcfg) = pair
+    members = [model, model] if case == "stacked" else model
+    tt = TiledInferencer(members, pcfg, device="cpu")
+    k, cap, b = (1, 128, 2) if case == "k1" else (3, 64, 2)
+    rng = np.random.default_rng(16)
+    points = torch.from_numpy(rng.normal(size=(b, k * cap, 9)).astype(np.float32))
+    scale, offset = torch.ones(b, 9), torch.zeros(b, 9)
+    init = None if k == 1 else torch.stack(
+        [torch.randperm(k * cap, generator=torch.Generator().manual_seed(s))[:k]
+         for s in range(b)])
+    run = tt._bucket_fn(k, cap, probs, torch.device("cpu"), b)
+    with torch.inference_mode():
+        got = run(points, scale, offset, init)
+        want = tt._run_bucket(k, cap, probs, points, scale, offset, init)
+    assert torch.equal(got[0], want[0]) and got[0].shape == (b, k * cap)
+    assert (got[1] is None) == (not probs)
+    if probs:
+        assert torch.equal(got[1], want[1])
+    assert tt._runners == {}
+
+
+def test_replayed_launches_add_what_the_capture_recorded():
+    """A capture records its kernel launches instead of counting them (other
+    threads go on counting theirs); each replay adds the record."""
+    import threading
+
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.launch_count import add_launches, count_launch, recording
+    from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
+
+    before = fused_mlp_chain.launches, quantized_mlp_chain.launches
+    try:
+        with recording() as recorded:  # a fake capture of an int8 bucket forward
+            for w in (fused_mlp_chain, fused_mlp_chain, quantized_mlp_chain, quantized_mlp_chain):
+                count_launch(w)
+            other = threading.Thread(target=count_launch, args=(fused_mlp_chain,))
+            other.start()
+            other.join()
+        assert recorded == {fused_mlp_chain: 2, quantized_mlp_chain: 2}
+        assert (fused_mlp_chain.launches, quantized_mlp_chain.launches) == (before[0] + 1,
+                                                                            before[1])
+        for _ in range(3):  # three replays
+            add_launches(recorded)
+        assert (fused_mlp_chain.launches, quantized_mlp_chain.launches) == (before[0] + 7,
+                                                                            before[1] + 6)
+        count_launch(fused_mlp_chain)  # outside a capture: counted
+        assert fused_mlp_chain.launches == before[0] + 8
+    finally:
+        fused_mlp_chain.launches, quantized_mlp_chain.launches = before
+
+
+def test_launch_counts_hold_under_concurrent_threads():
+    """More counting threads than cores, switching often: every launch
+    counted outside a capture is counted once, and none recorded inside one
+    reaches the counter."""
+    import sys
+    import threading
+
+    from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.launch_count import count_launch, recording
+
+    before, interval = fused_mlp_chain.launches, sys.getswitchinterval()
+    threads, per, records = 16, 500, []
+
+    def work(i):
+        if i % 4 == 0:  # a capturing thread
+            with recording() as rec:
+                for _ in range(per):
+                    count_launch(fused_mlp_chain)
+            records.append(rec[fused_mlp_chain])
+        else:
+            for _ in range(per):
+                count_launch(fused_mlp_chain)
+
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=work, args=(i,)) for i in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in pool)
+        assert records == [per] * (threads // 4)
+        assert fused_mlp_chain.launches - before == per * (threads - threads // 4)
+    finally:
+        sys.setswitchinterval(interval)
+        fused_mlp_chain.launches = before
