@@ -1,0 +1,7 @@
+"""Device memory of the training step: ``max_memory_allocated`` over the
+window, after ``reset_peak_memory_stats`` at its start, in GiB."""
+
+
+def read(layers):
+    peak = layers.get("peak_bytes")
+    return peak / 2 ** 30 if peak else None
