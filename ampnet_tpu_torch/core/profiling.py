@@ -11,14 +11,22 @@ optional codecarbon ``@track_emissions``, ``baseline/test_segmentation.py:25``):
   card that holds a tensor of ``result``, as ``jax.block_until_ready`` does;
 * ``EnergyTracker``: codecarbon-style energy and CO₂ from wall time ×
   an assumed power draw per device (``codecarbon`` and ``pynvml`` are not
-  used).
+  used);
+* ``SpanRecorder``, ``SpanGroup``, ``Spans``: the program's own spans (name,
+  start, end, thread, id, the id of the span that caused it), timed on the
+  monotonic clock and exported on the epoch clock that ``torch.profiler``
+  stamps its host events with, so they lie over a device trace. The serving
+  path records them on every thread it runs (``infer/server.py``), which
+  ``torch.profiler`` does not see.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set
@@ -131,3 +139,140 @@ class EnergyTracker:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump(self.report(), f, indent=2)
+
+
+# span ids, unique in the process: a group may outlive the recorder it was
+# started under (the server's counters can be replaced while requests run)
+_span_ids = itertools.count(1)
+
+
+class SpanGroup:
+    """The spans of one request or one micro-batch (``kind``), kept by the
+    threads that make them and committed to a ``SpanRecorder`` at once, when
+    the request or batch is over. ``id`` is the group's id and the parent of
+    its top-level spans (a request's root span, ``http.request``, takes it as
+    its own id). A span is (name, start ns, end ns, thread, id, parent,
+    attributes), times on ``time.perf_counter_ns``; a span with the attribute
+    ``clock="device"`` holds a device's own clock instead."""
+
+    __slots__ = ("kind", "id", "spans")
+
+    def __init__(self, kind: str):
+        self.kind, self.id, self.spans = kind, next(_span_ids), []
+
+    def add(self, name: str, start_ns: int, end_ns: int, parent: Optional[int] = None,
+            span_id: Optional[int] = None, **attrs) -> int:
+        """Appends a finished span (list appends hold across threads); returns its id."""
+        sid = span_id or next(_span_ids)
+        self.spans.append((name, start_ns, end_ns, threading.get_native_id(), sid,
+                           self.id if parent is None else parent, attrs))
+        return sid
+
+
+class Spans:
+    """Where a stage records its spans: a group and the span they hang
+    under. ``NO_SPANS`` (no group) records nothing, for callers that trace
+    nothing."""
+
+    __slots__ = ("group", "parent")
+
+    def __init__(self, group: Optional[SpanGroup] = None, parent: Optional[int] = None):
+        self.group = group
+        self.parent = group.id if parent is None and group is not None else parent
+
+    @property
+    def top(self) -> "Spans":
+        """The group's top level."""
+        return Spans(self.group)
+
+    def add(self, name: str, start_ns: int, end_ns: int, span_id: Optional[int] = None,
+            **attrs) -> int:
+        if self.group is None:
+            return 0
+        return self.group.add(name, start_ns, end_ns, self.parent, span_id, **attrs)
+
+    @contextlib.contextmanager
+    def span(self, name: str, start_ns: Optional[int] = None, **attrs):
+        """A span around the block (from ``start_ns`` when given), named
+        ``name``; yields the ``Spans`` of its children."""
+        if self.group is None:
+            yield self
+            return
+        sid, t0 = next(_span_ids), start_ns or time.perf_counter_ns()
+        try:
+            yield Spans(self.group, sid)
+        finally:
+            self.group.add(name, t0, time.perf_counter_ns(), self.parent, sid, **attrs)
+
+
+NO_SPANS = Spans()
+
+
+class SpanRecorder:
+    """Committed span groups, always as totals by span name, and as raw
+    records between ``start()`` and ``stop()``.
+
+    A warm group (a request or batch that ran no bucket shape for the first
+    time and did not fail) adds, for each span name in it, one to the name's
+    count and its spans' summed duration to the name's total; other groups
+    add to totals of their own, kept out of the summary. While recording,
+    each committed span is also appended as a dict: ``name``, ``start_ns`` and
+    ``end_ns`` on the epoch clock (``time.time_ns``, which ``torch.profiler``
+    stamps host events with: ``perf_counter_ns`` plus the offset read at
+    ``start()``; a device-clock span keeps its device's values), ``thread``
+    (``threading.get_native_id``), ``id``, ``parent``, the group's kind with
+    its id, ``warm`` and the span's attributes. Off, a commit checks one
+    field for the records. Nothing is written anywhere."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._warm: Dict[str, List[int]] = {}  # name -> [groups, ns]
+        self._other: Dict[str, List[int]] = {}
+        self._records: Optional[List[dict]] = None
+        self._offset_ns = 0
+
+    def start(self) -> None:
+        """Records raw spans from now on (earlier records are dropped)."""
+        with self._lock:
+            self._offset_ns = time.time_ns() - time.perf_counter_ns()
+            self._records = []
+
+    def stop(self) -> List[dict]:
+        """Stops recording; returns the records committed since ``start()``."""
+        with self._lock:
+            out, self._records = self._records or [], None
+        return out
+
+    def commit(self, group: SpanGroup, warm: bool = True) -> None:
+        with self._lock:
+            self._commit(group, warm)
+
+    def _commit(self, group: SpanGroup, warm: bool) -> None:
+        """``commit`` for a caller that holds ``self._lock``."""
+        per: Dict[str, int] = {}
+        for name, t0, t1, *_ in group.spans:
+            per[name] = per.get(name, 0) + (t1 - t0)
+        totals = self._warm if warm else self._other
+        for name, ns in per.items():
+            entry = totals.setdefault(name, [0, 0])
+            entry[0] += 1
+            entry[1] += ns
+        if self._records is not None:
+            for name, t0, t1, thread, sid, parent, attrs in group.spans:
+                off = 0 if attrs.get("clock") == "device" else self._offset_ns
+                self._records.append({"name": name, "start_ns": t0 + off, "end_ns": t1 + off,
+                                      "thread": thread, "id": sid, "parent": parent,
+                                      group.kind: group.id, "warm": warm, **attrs})
+
+    def _total_ns(self, name: str) -> int:
+        """Summed ns of the spans named ``name`` over every committed group,
+        warm or not (the caller holds ``self._lock``)."""
+        return sum(t.get(name, (0, 0))[1] for t in (self._warm, self._other))
+
+    def _summary(self) -> Dict[str, dict]:
+        """{name: {count, total_s, mean_ms}} over warm groups: ``count`` is the
+        groups that hold the name, ``mean_ms`` the mean of a group's summed
+        spans of that name (the caller holds ``self._lock``)."""
+        return {name: {"count": n, "total_s": round(ns * 1e-9, 6),
+                       "mean_ms": round(ns * 1e-6 / n, 4)}
+                for name, (n, ns) in sorted(self._warm.items())}

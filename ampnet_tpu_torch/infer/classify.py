@@ -20,6 +20,7 @@ import torch
 
 from ampnet_tpu_torch.core.device import resolve_device
 from ampnet_tpu_torch.core.logging import append_results_csv
+from ampnet_tpu_torch.core.profiling import NO_SPANS, Spans
 from ampnet_tpu_torch.data.datasets import resample_points
 from ampnet_tpu_torch.data.pipeline import to_device_batch
 from ampnet_tpu_torch.train.cls_step import binary_metrics_from_confusion
@@ -114,36 +115,48 @@ class CloudClassifier:
         probs = torch.softmax(logits, dim=-1)
         return logits.argmax(dim=-1).to(torch.int8), probs.to(torch.float16)
 
-    def dispatch_many(self, clouds, seeds=None, return_probs: bool = False) -> Dict:
+    def dispatch_many(self, clouds, seeds=None, return_probs: bool = False,
+                      spans: Spans = NO_SPANS) -> Dict:
+        """``spans`` gets ``dispatch.pad`` (the resampling and the batch's
+        copies), ``dispatch.pin`` (on a card) and ``dispatch.launch``; it has
+        no tiling, so no device stamps."""
         seeds = seeds or list(range(len(clouds)))
-        rows = np.stack([resample_points(np.asarray(c, np.float32), self.n_points,
-                                         np.random.default_rng(s))
-                         for c, s in zip(clouds, seeds)])
-        b = len(clouds)
-        b_pad = 1 << (b - 1).bit_length()
-        if b_pad > b:
-            rows = np.concatenate([rows, np.repeat(rows[:1], b_pad - b, axis=0)])
+        with spans.span("dispatch.pad"):
+            rows = np.stack([resample_points(np.asarray(c, np.float32), self.n_points,
+                                             np.random.default_rng(s))
+                             for c, s in zip(clouds, seeds)])
+            b = len(clouds)
+            b_pad = 1 << (b - 1).bit_length()
+            if b_pad > b:
+                rows = np.concatenate([rows, np.repeat(rows[:1], b_pad - b, axis=0)])
         x = torch.from_numpy(rows)
         event = None
         if self.device.type == "cuda":
-            x = x.pin_memory().to(self.device, non_blocking=True)
-        with torch.inference_mode():
-            out = self._run(x)
-        if self.device.type == "cuda":
-            out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                t, non_blocking=True) for t in out)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        return {"out": out, "event": event, "n": b, "return_probs": return_probs}
+            with spans.span("dispatch.pin"):
+                x = x.pin_memory()
+        with spans.span("dispatch.launch"):
+            x = x.to(self.device, non_blocking=True)
+            with torch.inference_mode():
+                out = self._run(x)
+            if self.device.type == "cuda":
+                out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True) for t in out)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+        return {"out": out, "event": event, "n": b, "return_probs": return_probs,
+                "spans": spans.top}
 
     def fetch_many(self, handle: Dict) -> list:
+        spans = handle["spans"]
         if handle["event"] is not None:
-            handle["event"].synchronize()
-        labels, probs = (t.numpy() for t in handle["out"])
-        n = handle["n"]
-        if handle["return_probs"]:
-            return [(labels[i:i + 1].astype(np.int32), probs[i]) for i in range(n)]
-        return [labels[i:i + 1].astype(np.int32) for i in range(n)]
+            with spans.span("batch.fetch_wait"):
+                handle["event"].synchronize()
+        with spans.span("batch.unpack"):
+            labels, probs = (t.numpy() for t in handle["out"])
+            n = handle["n"]
+            if handle["return_probs"]:
+                return [(labels[i:i + 1].astype(np.int32), probs[i]) for i in range(n)]
+            return [labels[i:i + 1].astype(np.int32) for i in range(n)]
 
     def predict_many(self, clouds, seeds=None, return_probs: bool = False) -> list:
         return self.fetch_many(self.dispatch_many(clouds, seeds, return_probs))

@@ -46,6 +46,15 @@ A capture that fails raises: no CUDA tensor runs the eager body after it,
 and nothing turns the graphs off. On the CPU the runner is the eager body.
 The kernels' launch counters count a replay's launches (``ops/launch_count.py``).
 
+The body stamps the device's clock three times (``ops/device_stamp.py``):
+before the k-means features, after the reorder gather and after the
+scatter. The stamps leave with the labels through the per-replay copy into
+pinned memory, so a later replay cannot overwrite them (an event recorded
+inside the graph could be), and ``fetch_many`` turns them into
+``device.tiling`` and ``device.forward`` spans. ``dispatch_many`` and the
+runner record the host's stages as spans too, into the ``Spans`` a caller
+passes (``core/profiling.py``; the server's, ``infer/server.py``).
+
 Dispatch and fetch are split for the serving loop. ``dispatch_many`` uploads
 each bucket from pinned memory, enqueues its work and an asynchronous copy
 of the results into pinned host memory, records a CUDA event, and returns
@@ -99,8 +108,10 @@ from ampnet_tpu_torch.core.config import AMPNetConfig
 from ampnet_tpu_torch.core.device import resolve_device
 from ampnet_tpu_torch.core.logging import append_results_csv
 from ampnet_tpu_torch.core.metrics import confusion_matrix, iou_from_confusion
+from ampnet_tpu_torch.core.profiling import NO_SPANS, Spans
 from ampnet_tpu_torch.data.schema import SEG_CLASS_NAMES
 from ampnet_tpu_torch.models.backends import make_forward
+from ampnet_tpu_torch.ops.device_stamp import device_stamp
 from ampnet_tpu_torch.ops.kmeans import balanced_kmeans, num_tiles_test
 from ampnet_tpu_torch.ops.launch_count import add_launches, recording
 
@@ -191,15 +202,20 @@ class _BucketGraph:
         self.inputs = None  # static: points, scale, offset, init (or None)
         self.graph = self.outputs = None
         self.launches: dict = {}  # kernel launches of one replay, by wrapper
-        self.capture_ms: Optional[float] = None
 
-    def __call__(self, points, scale, offset, init):
+    def __call__(self, points, scale, offset, init, spans: Spans = NO_SPANS):
         """``points`` [B, k·cap, F] in the wire dtype, ``scale`` and
         ``offset`` [B, F] (pinned host tensors) and ``init`` ([B, k] int64 on
-        the device, or None) → (labels, probs or None) in fresh pinned host
-        memory, and the event recorded after their copy."""
+        the device, or None) → (labels, probs or None, device stamps) in
+        fresh pinned host memory, and the event recorded after their copy.
+        ``spans`` gets ``graph.lock_wait`` and the call under the lock,
+        ``graph.replay`` or, on the first call, ``graph.capture``."""
         given = (points, scale, offset, init)
+        t0 = time.perf_counter_ns()
         with self.lock, torch.cuda.device(self.device), torch.inference_mode():
+            t1 = time.perf_counter_ns()
+            spans.add("graph.lock_wait", t0, t1)
+            captured = self.graph is None
             stream = torch.cuda.current_stream(self.device)
             if self.inputs is None:
                 self.inputs = tuple(None if t is None else torch.empty_like(t, device=self.device)
@@ -220,11 +236,12 @@ class _BucketGraph:
                              t, non_blocking=True) for t in outputs)
             event = torch.cuda.Event()
             event.record(stream)
+            spans.add("graph.capture" if captured else "graph.replay", t1,
+                      time.perf_counter_ns())
         return (*host, event)
 
     def _capture(self, stream):
         """The warm-up, whose outputs this call returns, then the capture."""
-        t0 = time.perf_counter()
         self.stream.wait_stream(stream)
         with torch.cuda.stream(self.stream):
             warm = self.body(*self.inputs)
@@ -238,7 +255,6 @@ class _BucketGraph:
                 graph, pool=self.pool, stream=self.stream, capture_error_mode="thread_local"):
             outputs = self.body(*self.inputs)
         self.graph, self.outputs, self.launches = graph, outputs, launches
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
         return warm
 
 
@@ -331,9 +347,14 @@ class TiledInferencer:
         """A bucket's body, what its graph captures: ``points`` [B, k*cap, F]
         in the wire dtype on one of the devices, ``init`` [B, k] k-means init
         indices (None for k = 1) → (labels [B, n] int8, probs [B, n, C]
-        float16 or None) in each cloud's original point order."""
+        float16 or None) in each cloud's original point order, and ``stamps``
+        [3] int64: the device's clock (``ops/device_stamp.py``) before the
+        k-means features, after the reorder gather (tiling done) and after
+        the scatter (forward, argmax and scatter done)."""
         b, n, f = points.shape
         int8_wire = self.transfer_dtype == np.dtype(np.int8)
+        stamps = torch.empty(3, dtype=torch.int64, device=points.device)
+        device_stamp(stamps, 0)
 
         def to_f32(x, s, o):
             # wire decode: f16/f32 upcast; int8 is the affine dequant of
@@ -355,6 +376,7 @@ class TiledInferencer:
             points = torch.gather(points, 1, order[..., None].expand(b, n, f))
         else:
             order = torch.arange(n, device=points.device).expand(b, n)
+        device_stamp(stamps, 1)
         windows = to_f32(points, scale, offset).reshape(b, k, cap, f)
         centroids = windows[..., :2].mean(dim=2)  # [B, k, 2]
         forwards = self._forwards_on[points.device]
@@ -370,17 +392,19 @@ class TiledInferencer:
         # int8 labels (num_classes ≤ 127) quarter the result traffic
         preds = preds.reshape(b, n).to(torch.int8)
         flat = torch.zeros_like(preds).scatter_(1, order, preds)
-        if not probs:
-            return flat, None
-        p = p.reshape(b, n, -1).to(torch.float16)
-        pflat = torch.zeros_like(p).scatter_(1, order[..., None].expand_as(p), p)
-        return flat, pflat
+        pflat = None
+        if probs:
+            p = p.reshape(b, n, -1).to(torch.float16)
+            pflat = torch.zeros_like(p).scatter_(1, order[..., None].expand_as(p), p)
+        device_stamp(stamps, 2)
+        return flat, pflat, stamps
 
     def _bucket_fn(self, k: int, cap: int, probs: bool, device: torch.device, b: int):
         """The runner of a bucket of ``b`` clouds on ``device``, made once:
         ``run(points, scale, offset, init)``. On the CPU it is the eager body
-        (→ labels, probs or None); on a CUDA device a ``_BucketGraph``
-        (→ labels, probs or None in pinned host memory, and an event)."""
+        (→ labels, probs or None, stamps); on a CUDA device a ``_BucketGraph``
+        (→ labels, probs or None, stamps in pinned host memory, and an event;
+        it also takes the call's ``spans``)."""
         body = functools.partial(self._run_bucket, k, cap, probs)
         if device.type != "cuda":
             return body
@@ -456,66 +480,88 @@ class TiledInferencer:
         return preds
 
     def predict_many(self, clouds, seeds=None, return_probs: bool = False,
-                     init_idx=None) -> list:
+                     init_idx=None, spans: Spans = NO_SPANS) -> list:
         """Predictions for a list of [N_i, F] clouds, same-bucket clouds
         sharing one dispatch. ``init_idx`` (one [k] index array per cloud,
         or None) fixes the k-means initialization, for tests."""
-        return self.fetch_many(self.dispatch_many(clouds, seeds, return_probs, init_idx))
+        return self.fetch_many(self.dispatch_many(clouds, seeds, return_probs, init_idx, spans))
 
     def dispatch_many(self, clouds, seeds=None, return_probs: bool = False,
-                      init_idx=None) -> dict:
+                      init_idx=None, spans: Spans = NO_SPANS) -> dict:
         """Async half of ``predict_many``: upload + enqueue every bucket and
         return a pending handle at once. Mega-clouds that take the spatial
-        halving path are resolved eagerly into the handle."""
+        halving path are resolved eagerly into the handle.
+
+        ``spans`` gets the stages: ``dispatch.pad`` (replicate padding and
+        the batch's power-of-two copies), then per bucket call
+        ``dispatch.encode``, ``dispatch.init`` (the k-means starts),
+        ``dispatch.pin`` (on a card) and ``dispatch.launch`` (the bucket's
+        runner, whose graph records under it); ``fetch_many`` records at the
+        top of the same group."""
         seeds = seeds or list(range(len(clouds)))
         results = [None] * len(clouds)
         buckets: Dict[tuple, list] = {}
         prepped = {}
         cold_before = self._cold_count
         for i, pc in enumerate(clouds):
-            n = pc.shape[0]
-            if n > self.max_points_per_call:
+            if pc.shape[0] > self.max_points_per_call:
                 results[i] = self.predict(pc, seeds[i], return_probs)
-                continue
-            k = num_tiles_test(n, self.n_points, self.max_clusters)
-            cap = self._cap_for(n, k)
-            rng = np.random.default_rng(seeds[i])
-            dup = rng.integers(0, n, k * cap - n)  # k*cap >= n by construction
-            prepped[i] = (np.concatenate([pc, pc[dup]], axis=0), n)
-            buckets.setdefault((k, cap), []).append(i)
 
         calls = []
         nd = len(self.devices)
-        for (k, cap), idxs in buckets.items():
-            rows = np.stack([prepped[i][0] for i in idxs])
-            # JAX's padding: a power of two, so a (k, cap) runs at most
-            # log2(B) batch shapes, then a multiple of the device count; the
-            # copies of the first cloud (seed 0) have their labels dropped
-            b_pad = 1 << (len(idxs) - 1).bit_length()
-            b_pad = -(-b_pad // nd) * nd
-            if b_pad > len(idxs):
-                rows = np.concatenate([rows, np.repeat(rows[:1], b_pad - len(idxs), axis=0)])
-            self._mark_program(k, cap, return_probs, b_pad)
-            per = b_pad // nd  # contiguous shards
-            for d, dev in enumerate(self.devices):
-                calls.append((k, cap, idxs[d * per:(d + 1) * per], rows[d * per:(d + 1) * per],
-                              dev))
+        real_points = device_points = 0
+        with spans.span("dispatch.pad"):
+            for i, pc in enumerate(clouds):
+                n = pc.shape[0]
+                if n > self.max_points_per_call:
+                    continue
+                k = num_tiles_test(n, self.n_points, self.max_clusters)
+                cap = self._cap_for(n, k)
+                rng = np.random.default_rng(seeds[i])
+                dup = rng.integers(0, n, k * cap - n)  # k*cap >= n by construction
+                prepped[i] = (np.concatenate([pc, pc[dup]], axis=0), n)
+                buckets.setdefault((k, cap), []).append(i)
+                real_points += n
+            for (k, cap), idxs in buckets.items():
+                rows = np.stack([prepped[i][0] for i in idxs])
+                # JAX's padding: a power of two, so a (k, cap) runs at most
+                # log2(B) batch shapes, then a multiple of the device count; the
+                # copies of the first cloud (seed 0) have their labels dropped
+                b_pad = 1 << (len(idxs) - 1).bit_length()
+                b_pad = -(-b_pad // nd) * nd
+                if b_pad > len(idxs):
+                    rows = np.concatenate([rows, np.repeat(rows[:1], b_pad - len(idxs), axis=0)])
+                self._mark_program(k, cap, return_probs, b_pad)
+                device_points += b_pad * k * cap
+                per = b_pad // nd  # contiguous shards
+                for d, dev in enumerate(self.devices):
+                    calls.append((k, cap, idxs[d * per:(d + 1) * per],
+                                  rows[d * per:(d + 1) * per], dev))
 
         def launch(call):
             k, cap, idxs, rows, dev = call
-            wire = [torch.from_numpy(np.ascontiguousarray(a)) for a in self._encode_batch(rows)]
+            with spans.span("dispatch.encode"):
+                wire = [torch.from_numpy(np.ascontiguousarray(a))
+                        for a in self._encode_batch(rows)]
             run = self._bucket_fn(k, cap, return_probs, dev, len(rows))
             # grad mode is per thread: each launching thread sets its own
             with torch.inference_mode():
-                init = None if k == 1 else torch.stack([
-                    self._init_idx(k * cap, k, seeds[i],
-                                   None if init_idx is None else init_idx[i], dev)
-                    for i in idxs] + [self._init_idx(k * cap, k, 0, None, dev)]
-                    * (len(rows) - len(idxs)))
+                init = None
+                if k > 1:
+                    with spans.span("dispatch.init"):
+                        init = torch.stack([
+                            self._init_idx(k * cap, k, seeds[i],
+                                           None if init_idx is None else init_idx[i], dev)
+                            for i in idxs] + [self._init_idx(k * cap, k, 0, None, dev)]
+                            * (len(rows) - len(idxs)))
                 if dev.type != "cuda":
-                    return (*run(*wire, init), None)
+                    with spans.span("dispatch.launch"):
+                        return (*run(*wire, init), None)
                 # pinned: the copies into the graph's inputs leave the host at once
-                return run(*(t.pin_memory() for t in wire), init)
+                with spans.span("dispatch.pin"):
+                    wire = [t.pin_memory() for t in wire]
+                with spans.span("dispatch.launch") as under:
+                    return run(*wire, init, under)
 
         if len(calls) > 1:
             # overlap per-bucket host prep and uploads across threads
@@ -533,21 +579,31 @@ class TiledInferencer:
             "return_probs": return_probs,
             # any bucket shape in this dispatch ran for the first time
             "cold": self._cold_count > cold_before,
+            # the bucket calls' real points and their points on the device
+            "points": (real_points, device_points),
+            "spans": spans.top,
         }
 
     def fetch_many(self, handle: dict) -> list:
         """Blocking half of ``predict_many``: wait for every pending bucket's
-        results and slice off the replicate padding."""
-        results, sizes = handle["results"], handle["sizes"]
-        for idxs, (flat, pflat, event) in handle["pending"]:
+        results and slice off the replicate padding. Records, per bucket
+        call, ``batch.fetch_wait``, ``batch.unpack`` and the device's
+        ``device.tiling`` and ``device.forward`` from its stamps."""
+        results, sizes, spans = handle["results"], handle["sizes"], handle["spans"]
+        for idxs, (flat, pflat, stamps, event) in handle["pending"]:
             if event is not None:
-                event.synchronize()
-            flat = flat.numpy()
-            pflat = pflat.numpy() if pflat is not None else None
-            for row, i in enumerate(idxs):
-                labels = flat[row, : sizes[i]].astype(np.int32)
-                results[i] = ((labels, pflat[row, : sizes[i]].copy())
-                              if handle["return_probs"] else labels)
+                with spans.span("batch.fetch_wait"):
+                    event.synchronize()
+            with spans.span("batch.unpack"):
+                flat = flat.numpy()
+                pflat = pflat.numpy() if pflat is not None else None
+                for row, i in enumerate(idxs):
+                    labels = flat[row, : sizes[i]].astype(np.int32)
+                    results[i] = ((labels, pflat[row, : sizes[i]].copy())
+                                  if handle["return_probs"] else labels)
+            t0, t1, t2 = stamps.tolist()
+            spans.add("device.tiling", t0, t1, clock="device")
+            spans.add("device.forward", t1, t2, clock="device")
         return results
 
 
@@ -584,13 +640,16 @@ class EnsembleInferencer:
     def cold_programs_seen(self) -> int:
         return sum(m.cold_programs_seen for m in self.members)
 
-    def dispatch_many(self, clouds, seeds=None, return_probs: bool = False) -> dict:
+    def dispatch_many(self, clouds, seeds=None, return_probs: bool = False,
+                      spans: Spans = NO_SPANS) -> dict:
         # members always return probabilities: the mean needs them
-        handles = [m.dispatch_many(clouds, seeds, return_probs=True) for m in self.members]
+        handles = [m.dispatch_many(clouds, seeds, return_probs=True, spans=spans)
+                   for m in self.members]
         return {
             "member_handles": handles,
             "return_probs": return_probs,
             "cold": any(h["cold"] for h in handles),
+            "points": tuple(map(sum, zip(*(h["points"] for h in handles)))),
         }
 
     def fetch_many(self, handle: dict) -> list:

@@ -198,10 +198,16 @@ the run (non-zero exit, no result line) when it does not hold:
    replay names the ``fused_mlp_chain`` kernel (``chain_kernel`` of a
    ``Chain``) under ``fused`` and the int8 chain and absmax kernels under
    ``int8``, and the counters grow by 4, and by 2 + 2, per replayed bucket
-   forward; (d) the capture ms of each shape, the graphs held, the cold
-   count equal to the graphs captured, and the memory reserved. The
-   ``graphs:`` line prints every number beside the card;
-15. results -- one ``{"kernels": [...]}`` line, then as the last line
+   forward, and ``device_stamp``'s by 3; (d) the capture ms of each shape,
+   the graphs held, the cold count equal to the graphs captured, and the
+   memory reserved; (e) a warm k = 18 bucket replayed 10 times: its device
+   stamps rise in each replay, the stamp kernel launches 3 times a replay,
+   and the median whole interval and tiling interval lie within 10 % of
+   CUDA events around replays of the same graph and of a graph of the
+   body's tiling alone. The ``graphs:`` line prints every number beside the
+   card;
+15. results -- one ``{"kernels": [...]}`` line (``device_stamp``'s entry
+   holds its launches in phase 14 and (e)'s readings), then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -224,7 +230,7 @@ import numpy as np
 import torch
 
 SEED = 0
-KERNEL_SOURCES = ("fused_mlp", "quantized_mlp")  # ampnet_tpu_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("fused_mlp", "quantized_mlp", "device_stamp")  # ampnet_tpu_torch/csrc/<name>.cu
 HOST_SOURCES = ("balanced_assign",)  # ampnet_tpu_torch/csrc/<name>.cc, built by g++
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 and
 # int8 on the tensor cores, and HBM3
@@ -816,8 +822,8 @@ def serve_phase(model, cfg, backend: str, device: str = "cuda", ckpt=None):
         calls, fetched = [], {}
         dispatch, fetch = inferencer.dispatch_many, inferencer.fetch_many
 
-        def record_dispatch(batch, seeds=None, return_probs=False, init_idx=None):
-            handle = dispatch(batch, seeds, return_probs, init_idx)
+        def record_dispatch(batch, seeds=None, return_probs=False, **kw):
+            handle = dispatch(batch, seeds, return_probs, **kw)
             calls.append(([c.copy() for c in batch], list(seeds), return_probs, handle))
             return handle
 
@@ -2774,10 +2780,11 @@ def kernel_launches() -> int:
 
 
 def reset_launches() -> None:
+    from ampnet_tpu_torch.ops.device_stamp import device_stamp
     from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
     from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
 
-    fused_mlp_chain.launches = quantized_mlp_chain.launches = 0
+    fused_mlp_chain.launches = quantized_mlp_chain.launches = device_stamp.launches = 0
 
 
 def timed_steps(step, state, batch, n) -> tuple:
@@ -3655,6 +3662,12 @@ GRAPH_RUNS = {
     "shards_fused": ("fused", 1, ("cuda:0", "cuda:0")),
 }
 GRAPH_REPLAYS = 3  # replayed bucket forwards counted in (c)
+STAMPS_PER_REPLAY = 3  # device_stamp launches in a bucket graph
+# (e): replays of the k = 18 bucket whose stamps are read, and of each graph
+# the CUDA events time; how far a stamp interval's median may lie from its
+# events' median (the stamps and the events bracket the same nodes)
+STAMP_REPLAYS = 10
+STAMP_TOLERANCE = 0.10
 MAX_REQUEST_ENQUEUES = 50  # kernel and copy enqueues of a warm 1-cloud request
 # the CUDA runtime calls that put work on a stream
 ENQUEUE_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
@@ -3675,16 +3688,18 @@ def graph_check():
     def checked(self, *args):
         with lock:  # no other call of a graph between this one and its check
             replay = self.graph is not None
-            flat, pflat, event = call(self, *args)
+            flat, pflat, stamps, event = call(self, *args)
             event.synchronize()
             with torch.inference_mode(), torch.cuda.device(self.device):
-                want = self.body(*(None if t is None else t.to(self.device) for t in args))
+                # the body's inputs: points, scale, offset, init (then the spans)
+                want = self.body(*(None if t is None else t.to(self.device)
+                                   for t in args[:4]))
                 want = [None if t is None else t.cpu() for t in want]
             equal = torch.equal(flat, want[0]) and (
                 pflat is None if want[1] is None else torch.equal(pflat, want[1]))
             calls.append({"replay": replay, "equal": equal, "shape": list(flat.shape),
                           "probs": pflat is not None})
-            return flat, pflat, event
+            return flat, pflat, stamps, event
 
     _BucketGraph.__call__ = checked
     try:
@@ -3733,10 +3748,100 @@ def graph_clouds(rng, sizes=GRAPH_CLOUD_POINTS):
     return out
 
 
-def graph_phase(model, cfg, dev, card) -> dict:
-    """Phase 14: (a)-(d) of the module docstring → the launches of (c)'s
-    replayed bucket forwards by run."""
+def captured(fn, device):
+    """``fn`` captured in a CUDA graph, after a warm-up run on a side stream."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def replay_ms(graph, device, reps=STAMP_REPLAYS) -> list:
+    """Device ms of each of ``reps`` replays of ``graph``: CUDA events
+    recorded around each on the current stream, which the replay runs on."""
+    stream = torch.cuda.current_stream(device)
+    out = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        graph.replay()
+        end.record(stream)
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def stamp_check(tt) -> dict:
+    """(e): the warm (18, 4096) bucket of ``tt`` replayed ``STAMP_REPLAYS``
+    times through its runner. Each replay's three stamps rise, the stamp
+    kernel's counter grows by 3 a replay, and the medians of the whole
+    interval (stamps[2] - stamps[0]) and of the tiling interval
+    (stamps[1] - stamps[0]) lie within ``STAMP_TOLERANCE`` of CUDA events
+    around replays of the same graph, and around replays of a graph of the
+    body's tiling alone (the k-means features, ``balanced_kmeans``, the
+    argsort and the reorder gather, as ``_run_bucket`` runs them on the
+    float32 wire) on the same static inputs. A stamp in the wrong place or
+    slot, or of another clock or unit, fails one of them."""
+    from ampnet_tpu_torch.infer.tiled import KMEANS_FEATURE_IDX
+    from ampnet_tpu_torch.ops.device_stamp import device_stamp
+    from ampnet_tpu_torch.ops.kmeans import balanced_kmeans
+
+    k, cap, dev = 18, 4096, tt.devices[0]
+    runner = tt._runners[(dev, k, cap, False, 1)]
+    given = tuple(None if t is None else t.clone() for t in runner.inputs)
+    stamps = []
+    device_stamp.launches = 0
+    for _ in range(STAMP_REPLAYS):
+        _, _, s, event = runner(*given)
+        event.synchronize()
+        stamps.append(s.tolist())
+    launches = device_stamp.launches
+    points, _, _, init = runner.inputs
+    b, n, f = points.shape
+
+    def tiling():
+        feats = torch.stack([points[..., c] for c in KMEANS_FEATURE_IDX], dim=-1).float()
+        assign, _ = balanced_kmeans(
+            feats, k, capacities=(cap,) * k,
+            lloyd_mode="argmin" if tt.tiler == "fast" else "sinkhorn", init_idx=init)
+        order = torch.argsort(assign, dim=-1, stable=True)
+        return torch.gather(points, 1, order[..., None].expand(b, n, f))
+
+    with runner.lock, torch.cuda.device(dev), torch.inference_mode():
+        whole_ms = replay_ms(runner.graph, dev)
+        graph = captured(tiling, dev)
+        tiling_ms = replay_ms(graph, dev)
+        del graph
+    out = {"bucket": [k, cap], "replays": STAMP_REPLAYS, "launches": launches,
+           "stamp_whole_ms": float(np.median([(c - a) * 1e-6 for a, _, c in stamps])),
+           "event_whole_ms": float(np.median(whole_ms)),
+           "stamp_tiling_ms": float(np.median([(m - a) * 1e-6 for a, m, _ in stamps])),
+           "event_tiling_ms": float(np.median(tiling_ms)),
+           "tolerance": STAMP_TOLERANCE, "stamps_ns_first_replay": stamps[0]}
+    if launches != STAMPS_PER_REPLAY * STAMP_REPLAYS:
+        raise RuntimeError(f"(e) {STAMP_REPLAYS} replays launched device_stamp {launches} "
+                           f"times, want {STAMPS_PER_REPLAY * STAMP_REPLAYS}")
+    if not all(a < m < c for a, m, c in stamps):
+        raise RuntimeError(f"(e) stamps that do not rise: {stamps}")
+    for part in ("whole", "tiling"):
+        got, want = out[f"stamp_{part}_ms"], out[f"event_{part}_ms"]
+        if abs(got / want - 1.0) > STAMP_TOLERANCE:
+            raise RuntimeError(f"(e) the stamps' {part} interval {got:.4f} ms against CUDA "
+                               f"events' {want:.4f} ms, past {STAMP_TOLERANCE:.0%}")
+    return out
+
+
+def graph_phase(model, cfg, dev, card) -> tuple:
+    """Phase 14: (a)-(e) of the module docstring → (the kernels' launches
+    in (c)'s replayed bucket forwards and in (e) by run, (e)'s readings)."""
+    from ampnet_tpu_torch.core.profiling import SpanGroup, Spans
     from ampnet_tpu_torch.infer.tiled import TiledInferencer
+    from ampnet_tpu_torch.ops.device_stamp import device_stamp
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 14)
@@ -3766,9 +3871,11 @@ def graph_phase(model, cfg, dev, card) -> dict:
             else:
                 sets = [first, other]
             start = len(calls)
+            spans = Spans(SpanGroup("batch"))  # each capture's graph.capture span
             for probs in (False, True):
                 for clouds in (sets[0], sets[0], sets[1]):
-                    tt.predict_many(clouds, seeds=list(range(len(clouds))), return_probs=probs)
+                    tt.predict_many(clouds, seeds=list(range(len(clouds))), return_probs=probs,
+                                    spans=spans)
             mine = calls[start:]
             replays = sum(c["replay"] for c in mine)
             out["a_replay_vs_eager"][run] = {
@@ -3784,8 +3891,9 @@ def graph_phase(model, cfg, dev, card) -> dict:
                                    f"{len(graphs)} graphs")
             out["d_cache"][run] = {
                 "graphs": len(graphs), "cold_programs_seen": tt.cold_programs_seen,
-                "capture_ms": {f"k{k}_cap{cap}_probs{int(p)}_b{b}": r.capture_ms
-                               for (_, k, cap, p, b), r in tt._runners.items()}}
+                "capture_ms": [round((t1 - t0) * 1e-6, 1)
+                               for name, t0, t1, *_ in spans.group.spans
+                               if name == "graph.capture"]}
             if len(graphs) != tt.cold_programs_seen:
                 raise RuntimeError(f"(d) {run}: {len(graphs)} graphs captured, "
                                    f"{tt.cold_programs_seen} cold program shapes")
@@ -3831,7 +3939,7 @@ def graph_phase(model, cfg, dev, card) -> dict:
         reset_launches()  # the main path's run starts here
         for _ in range(GRAPH_REPLAYS):
             tt.predict_many(first[:1], seeds=[0])
-        counts = launch_counts()  # ... and ends here
+        counts = {**launch_counts(), "device_stamp": device_stamp.launches}  # ... and ends here
         launches[f"graph_replays_{run}"] = counts
         out[f"c_{run}"] = {"traced_per_replay": {"fused_chain_kernel": fused_k,
                                                  "int8_chain_kernel_passes": int8_k,
@@ -3842,17 +3950,23 @@ def graph_phase(model, cfg, dev, card) -> dict:
                 int8_k < absmax or (int8_k > 0) != (absmax > 0)):
             raise RuntimeError(f"(c) {run}: a traced replay ran {chains} and {absmax} absmax "
                                f"kernels, want {want}")
-        if counts != {k: v * GRAPH_REPLAYS for k, v in want.items()}:
+        if counts != {**{k: v * GRAPH_REPLAYS for k, v in want.items()},
+                      "device_stamp": STAMPS_PER_REPLAY * GRAPH_REPLAYS}:
             raise RuntimeError(f"(c) {run}: {GRAPH_REPLAYS} replays counted {counts}")
     _say("  (c) " + json.dumps({k: v for k, v in out.items() if k.startswith("c_")}))
 
     out["d_cache"]["memory_reserved_gib"] = {"before": mem0 / 2**30,
                                              "after": torch.cuda.memory_reserved() / 2**30}
     _say("  (d) " + json.dumps(out["d_cache"]))
+
+    # (e) the device stamps of a replay against CUDA events
+    out["e_stamps"] = stamp_check(fused)
+    launches["stamps_fused"] = {"device_stamp": out["e_stamps"]["launches"]}
+    _say("  (e) " + json.dumps(out["e_stamps"]))
     out["phase_s"] = time.perf_counter() - t_phase
     _say("graphs: " + json.dumps(out))
     del inferencers
-    return launches
+    return launches, out["e_stamps"]
 
 
 def build_phase():
@@ -3940,7 +4054,7 @@ def main() -> int:
         bench_launches = bench_phase(dev, card, work)
 
     _say("[14/15] bucket graphs: replay against the eager body, enqueues, kernels, cache")
-    graph_launches = graph_phase(model, cfg, dev, card)
+    graph_launches, stamps = graph_phase(model, cfg, dev, card)
 
     _say("[15/15] results")
     # launches only where the serving runs counted them: each kernel in both
@@ -3980,7 +4094,7 @@ def main() -> int:
         # phase 13 checked 0 on the bench's train arms and under xla
         total["launches_by_run"]["bench_train_xla"] = 0
         for run, counts in graph_launches.items():  # phase 14 (c): replayed bucket forwards
-            if counts[name]:
+            if counts.get(name):
                 total["launches_by_run"][run] = counts[name]
         total["launches"] = sum(total["launches_by_run"].values())
     # the serve: chains ran once a bucket forward of phase 5, the bench: chains
@@ -4004,8 +4118,15 @@ def main() -> int:
         cases.append({**geom_rows[name], "launches": sum(
             counts[name] // per for run, counts in geom_launches.items()
             if (per_forward[run] == LAUNCHES_PER_FORWARD[backend]))})
+    # device_stamp: three launches in every bucket graph replay; counted
+    # where phase 14 counted them, held against CUDA events in (e)
+    stamp_runs = {run: counts["device_stamp"] for run, counts in graph_launches.items()}
+    stamp_total = {"name": "device_stamp", "case": "three stamps a bucket graph replay",
+                   "route": "cuda", "source": "ampnet_tpu_torch/csrc/device_stamp.cu",
+                   "replaces": None, "launches_by_run": stamp_runs,
+                   "launches": sum(stamp_runs.values()), "against_cuda_events": stamps}
     _say(json.dumps({"kernels": [{**fused_total, "cases": fused_cases},
-                                 {**int8_total, "cases": int8_cases}]}))
+                                 {**int8_total, "cases": int8_cases}, stamp_total]}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -10,6 +10,7 @@ the two packages' k-means initializations come from different generators."""
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -219,3 +220,145 @@ def test_serve_int8_command_line_matches_predict_many(pair, tmp_path):
     np.testing.assert_array_equal(binary, direct.predict_many([one], seeds=[0])[0])
     for got, want in zip(labels, direct.predict_many(two, seeds=[0, 0])):
         np.testing.assert_array_equal(np.asarray(got), want)
+
+
+def _recorded(srv, send) -> list:
+    """The raw span records of the requests ``send()`` makes (it returns
+    how many), once their handlers have committed them."""
+    stats = srv.service.stats
+    before = stats.requests
+    stats.start()
+    n = send()
+    deadline = time.monotonic() + 60
+    while stats.requests < before + n and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return stats.stop()
+
+
+def _inside(inner, outer) -> bool:
+    return outer["start_ns"] <= inner["start_ns"] <= inner["end_ns"] <= outer["end_ns"]
+
+
+@pytest.mark.parametrize("wire", ["binary", "json", "tta"])
+def test_request_spans_nest_and_name_their_batch(pair, wire):
+    """A request's spans: ``http.request`` (its id the request's) encloses
+    read, decode, predict, encode and write in that order; its
+    ``batch.queue`` ends where its batch's ``batch.dispatch`` starts, and the
+    dispatch's stages lie inside the dispatch."""
+    _, srv = pair
+    cloud = np.random.default_rng(9).normal(size=(150, 9)).astype(np.float32)
+
+    def send():
+        if wire == "json":
+            _post(srv, json.dumps({"clouds": [cloud.tolist()]}).encode(), JSON)
+        else:
+            _post(srv, cloud.tobytes(), {**BINARY, "X-TTA": "2" if wire == "tta" else "1"})
+        return 1
+
+    records = _recorded(srv, send)
+    (root,) = [r for r in records if r["name"] == "http.request"]
+    rid = root["request"]
+    assert root["id"] == rid and root["parent"] == 0
+    mine = [r for r in records if r.get("request") == rid]
+    kids = sorted((r for r in mine if r["name"] not in ("batch.queue", "http.request")),
+                  key=lambda r: r["start_ns"])
+    assert [r["name"] for r in kids] == ["http.read", "http.decode", "service.predict",
+                                         "http.encode", "http.write"]
+    assert all(r["parent"] == rid and _inside(r, root) for r in kids)
+    assert all(a["end_ns"] <= b["start_ns"] for a, b in zip(kids, kids[1:]))
+    (queue,) = [r for r in mine if r["name"] == "batch.queue"]
+    assert _inside(queue, kids[2])
+    batch = [r for r in records if r.get("batch") == queue["batch"] and "request" not in r]
+    (dispatch,) = [r for r in batch if r["name"] == "batch.dispatch"]
+    assert dispatch["start_ns"] == queue["end_ns"]
+    stages = [r for r in batch if r["name"].startswith("dispatch.")]
+    assert {r["name"] for r in stages} >= {"dispatch.pad", "dispatch.encode", "dispatch.launch"}
+    assert all(r["parent"] == dispatch["id"] and _inside(r, dispatch) for r in stages)
+    assert {"batch.drain", "batch.fetch_queue", "batch.unpack", "batch.exec", "device.tiling",
+            "device.forward"} <= {r["name"] for r in batch}
+
+
+def test_recording_off_appends_nothing(pair):
+    """Off, a request adds to the span totals and appends no record."""
+    _, srv = pair
+    stats = srv.service.stats
+    stats.stop()
+    before = stats.requests
+    _post(srv, np.random.default_rng(10).normal(size=(90, 9)).astype(np.float32).tobytes(),
+          BINARY)
+    deadline = time.monotonic() + 60
+    while stats.requests == before and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert stats.requests == before + 1
+    assert stats._records is None and stats.stop() == []
+
+
+def test_stats_keys_read_the_spans(pair):
+    """Each snapshot key that predates the spans holds its value: decode and
+    encode totals are their spans' sums, ``device_s_total`` over
+    ``device_batches`` is each warm batch's dispatch done to fetch done, the
+    request count and latency are ``service.predict``'s."""
+    from ampnet_tpu_torch.infer.server import ServingStats
+
+    _, srv = pair
+    old, srv.service.stats = srv.service.stats, ServingStats()
+    rng = np.random.default_rng(11)
+    clouds = [rng.normal(size=(n, 9)).astype(np.float32) for n in (150, 80, 120, 100)]
+
+    def send():
+        _post(srv, clouds[0].tobytes(), BINARY)
+        _post(srv, json.dumps({"clouds": [c.tolist() for c in clouds[1:3]]}).encode(), JSON)
+        _post(srv, clouds[3].tobytes(), BINARY)
+        return 3
+
+    try:
+        records = _recorded(srv, send)
+        snap = srv.service.stats.snapshot()
+    finally:
+        srv.service.stats = old
+    dur = lambda rs: sum(r["end_ns"] - r["start_ns"] for r in rs) * 1e-9
+    named = lambda name: [r for r in records if r["name"] == name]
+    b = snap["breakdown"]
+    assert b["decode_s_total"] == round(dur(named("http.decode")), 4)
+    assert b["encode_s_total"] == round(dur(named("http.encode")), 4)
+    execs = named("batch.exec")
+    warm = [r for r in execs if not r["cold"]]
+    assert b["device_batches"] == len(warm) and b["cold_batches"] == len(execs) - len(warm)
+    assert b["device_s_total"] == round(dur(warm), 4)
+    assert b["cold_device_s_total"] == round(dur(execs) - dur(warm), 4)
+    for r in execs:
+        mine = [x for x in records if x.get("batch") == r["batch"] and "request" not in x]
+        (dispatch,) = [x for x in mine if x["name"] == "batch.dispatch"]
+        assert 0 <= r["start_ns"] - dispatch["end_ns"] < 10 ** 8
+        assert all(x["end_ns"] <= r["end_ns"] for x in mine if x["name"] == "batch.unpack")
+    predicts = named("service.predict")
+    assert snap["requests"] == len(predicts) == 3
+    assert snap["points"] == sum(c.shape[0] for c in clouds)
+    lat = sorted((r["end_ns"] - r["start_ns"]) * 1e-9 for r in predicts if not r["cold"])
+    if lat:
+        assert snap["latency_s"]["p50"] == lat[int(0.5 * (len(lat) - 1))]
+
+
+def test_pad_share_and_spans_of_a_warm_batch(pair):
+    """A warm 3-cloud bucket (k 3, cap 128) padded to 4 clouds:
+    ``pad_share`` is 1 − 630 / (4 · 3 · 128), and ``spans`` counts the
+    batch and the request once each."""
+    from ampnet_tpu_torch.infer.server import ServingStats
+
+    _, srv = pair
+    rng = np.random.default_rng(12)
+    clouds = [rng.normal(size=(n, 9)).astype(np.float32) for n in (200, 210, 220)]
+    payload = json.dumps({"clouds": [c.tolist() for c in clouds]}).encode()
+    _post(srv, payload, JSON)  # the shape's first run: cold
+    old, srv.service.stats = srv.service.stats, ServingStats()
+    try:
+        _recorded(srv, lambda: len([_post(srv, payload, JSON)]))
+        snap = srv.service.stats.snapshot()
+    finally:
+        srv.service.stats = old
+    assert snap["breakdown"]["pad_share"] == round(1 - 630 / (4 * 3 * 128), 6)
+    spans = snap["spans"]
+    for name in ("http.request", "service.predict", "batch.queue", "batch.dispatch",
+                 "dispatch.pad", "batch.exec", "device.tiling", "device.forward"):
+        assert spans[name]["count"] == 1, name
+    assert spans["http.request"]["mean_ms"] >= spans["service.predict"]["mean_ms"] > 0

@@ -330,3 +330,79 @@ def test_launch_counts_hold_under_concurrent_threads():
     finally:
         sys.setswitchinterval(interval)
         fused_mlp_chain.launches = before
+
+
+@pytest.mark.parametrize("kind", ["tiled", "sharded", "ensemble", "classifier"])
+def test_every_inferencer_records_its_stages(pair, kind):
+    """Each inferencer the server can hold records its dispatch stages under
+    the dispatch's span and its fetch at the group's top: one bucket call a
+    bucket (a shard, a member), none of a stage it does not have (no pin or
+    fetch wait on the CPU, no tiling stamps in the classifier)."""
+    from ampnet_tpu_torch.core.profiling import SpanGroup, Spans
+    from ampnet_tpu_torch.infer.classify import CloudClassifier
+    from ampnet_tpu_torch.infer.tiled import EnsembleInferencer
+    from ampnet_tpu_torch.models.factory import build_model
+
+    (_, _, _), (model, pcfg) = pair
+    one = lambda: TiledInferencer(model, pcfg, device="cpu")
+    inferencer, calls = {
+        "tiled": lambda: (one(), 2),
+        "sharded": lambda: (TiledInferencer(model, pcfg, device="cpu",
+                                            devices=["cpu", "cpu"]), 4),
+        "ensemble": lambda: (EnsembleInferencer([one(), one()]), 4),
+        "classifier": lambda: (CloudClassifier(
+            build_model(pcfg, "attention", "classification").eval(), pcfg, device="cpu"), 1),
+    }[kind]()
+    rng = np.random.default_rng(17)
+    clouds = [rng.normal(size=(n, 9)).astype(np.float32) for n in (100, 200, 210)]  # k 1, 3, 3
+    group = SpanGroup("batch")
+    with Spans(group).span("batch.dispatch") as under:
+        handle = inferencer.dispatch_many(clouds, seeds=[0, 0, 0], spans=under)
+    assert len(inferencer.fetch_many(handle)) == 3
+    (dispatch,) = [s for s in group.spans if s[0] == "batch.dispatch"]
+    count = lambda name: sum(s[0] == name for s in group.spans)
+    tiled = kind != "classifier"
+    members = 2 if kind == "ensemble" else 1
+    want = {"dispatch.pad": members, "dispatch.encode": calls if tiled else 0,
+            "dispatch.init": calls // 2 if tiled else 0, "dispatch.launch": calls,
+            "dispatch.pin": 0, "batch.fetch_wait": 0, "batch.unpack": calls,
+            "device.tiling": calls if tiled else 0, "device.forward": calls if tiled else 0}
+    assert {name: count(name) for name in want} == want
+    for name, t0, t1, _, _, parent, attrs in group.spans:
+        if name.startswith("dispatch."):
+            assert parent == dispatch[4] and dispatch[1] <= t0 <= t1 <= dispatch[2]
+        elif name != "batch.dispatch":
+            assert parent == group.id and (attrs.get("clock") == "device") == (
+                name.startswith("device."))
+
+
+@pytest.mark.parametrize("n", [100, 200])  # k = 1, k = 3
+def test_cpu_stamps_split_the_bucket_call(pair, n):
+    """On the CPU the body's stamps (``perf_counter_ns``) lie inside the
+    call that ran it: tiling ≥ 0, forward > 0, their sum at most the call;
+    without k-means (k = 1) the tiling interval is a small part of it."""
+    from ampnet_tpu_torch.core.profiling import SpanGroup, Spans
+
+    (_, _, _), (model, pcfg) = pair
+    tt = TiledInferencer(model, pcfg, device="cpu")
+    cloud = np.random.default_rng(18).normal(size=(n, 9)).astype(np.float32)
+    group = SpanGroup("batch")
+    tt.predict_many([cloud], spans=Spans(group))
+    spans = {s[0]: s for s in group.spans}
+    launch, tiling, forward = (spans[k] for k in ("dispatch.launch", "device.tiling",
+                                                  "device.forward"))
+    assert launch[1] <= tiling[1] <= tiling[2] == forward[1] < forward[2] <= launch[2]
+    if n == 100:
+        assert tiling[2] - tiling[1] < 0.25 * (forward[2] - forward[1])
+
+
+def test_dispatch_counts_real_and_device_points(pair):
+    """A bucket of 3 clouds (k 3 × cap 128) padded to 4: the handle counts
+    the 630 real points and the 4 · 3 · 128 the device runs."""
+    (_, _, _), (model, pcfg) = pair
+    tt = TiledInferencer(model, pcfg, device="cpu")
+    rng = np.random.default_rng(19)
+    handle = tt.dispatch_many([rng.normal(size=(n, 9)).astype(np.float32)
+                               for n in (200, 210, 220)])
+    assert handle["points"] == (630, 4 * 3 * 128)
+    tt.fetch_many(handle)
