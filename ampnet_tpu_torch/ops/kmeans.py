@@ -8,6 +8,14 @@ of clouds, with no data-dependent shapes, no host sync and, for equal
 capacities (the tiler's), no host→device copy, so the tiled inferencer's
 bucket graph captures it whole (``infer/tiled.py``).
 
+On a card, ``sinkhorn_plan``'s iterations run as three launches of
+``csrc/sinkhorn.cu`` each (``sinkhorn_iterations``) and torch's column sum,
+for every input they take: a CUDA float32 tensor, no ``point_mask``, at most
+``MAX_CLUSTERS`` clusters. Their plan equals the plain loop's bit for bit
+(the tiling rounds a near tie otherwise under any other order of the sums),
+so every caller, the served path too, gets the plain loop's windows. Every
+other input runs the plain loop.
+
 Differences from the JAX module, both deliberate:
 
 * the initial centroids come from ``torch.randperm`` on a ``torch.Generator``
@@ -20,10 +28,17 @@ Differences from the JAX module, both deliberate:
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ampnet_tpu_torch.ops import cuda_build
+from ampnet_tpu_torch.ops.launch_count import count_launch
+
+MAX_CLUSTERS = 32  # the kernels' k
 
 
 def _sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -48,17 +63,115 @@ def sinkhorn_plan(
         logK = torch.where(point_mask[..., None], logK, -1e30)
         row_mass = point_mask.float()
         log_r = torch.log(row_mass.clamp_min(1e-30))
-    u = torch.zeros(cost.shape[:-1], device=cost.device)  # log of the unit row mass is 0
-    v = torch.zeros((*cost.shape[:-2], cost.shape[-1]), device=cost.device)
-    for _ in range(iters):
-        # column scaling then row scaling in log space
-        v = log_c - torch.logsumexp(logK + u[..., :, None], dim=-2)
-        lse = torch.logsumexp(logK + v[..., None, :], dim=-1)
-        u = -lse if point_mask is None else log_r - lse
+    if point_mask is None and _kernels_take(logK, log_c, iters):
+        u, v = sinkhorn_iterations(logK, log_c, iters)
+    else:
+        u = torch.zeros(cost.shape[:-1], device=cost.device)  # log of the unit row mass is 0
+        v = torch.zeros((*cost.shape[:-2], cost.shape[-1]), device=cost.device)
+        for _ in range(iters):
+            # column scaling then row scaling in log space
+            v = log_c - torch.logsumexp(logK + u[..., :, None], dim=-2)
+            lse = torch.logsumexp(logK + v[..., None, :], dim=-1)
+            u = -lse if point_mask is None else log_r - lse
     plan = torch.exp(logK + u[..., :, None] + v[..., None, :])
     # a masked row's u grows to ~1e30 and logK + u cancels in float32: the
     # row mass sets it to exactly zero, as the JAX module does
     return plan if point_mask is None else plan * row_mass[..., None]
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _kernels_take(logK: torch.Tensor, log_c: torch.Tensor, iters: int) -> bool:
+    """Whether ``sinkhorn_plan`` hands its iterations to the kernels: the
+    input alone decides (device, dtype, sizes), no flag."""
+    return (_on_card(logK) and logK.dtype == torch.float32 and logK.dim() >= 2
+            and logK.numel() > 0 and 1 <= logK.shape[-1] <= MAX_CLUSTERS
+            and int(np.prod(logK.shape[:-2])) <= 65535 and log_c.dtype == torch.float32
+            and log_c.device == logK.device and tuple(log_c.shape) == (logK.shape[-1],)
+            and iters >= 1)
+
+
+_lib_lock = threading.Lock()
+
+
+def _sinkhorn_lib() -> ctypes.CDLL:
+    """The built ``csrc/sinkhorn.cu``, declared once."""
+    lib = cuda_build.load("sinkhorn")
+    with _lib_lock:
+        if lib.sinkhorn_rows.argtypes is None:
+            lib.sinkhorn_blocks.restype = ctypes.c_int
+            lib.sinkhorn_blocks.argtypes = [ctypes.c_int]
+            lib.sinkhorn_columns.restype = ctypes.c_int
+            lib.sinkhorn_columns.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            lib.sinkhorn_rows.restype = ctypes.c_int
+            lib.sinkhorn_rows.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+    return lib
+
+
+def _launched(err: int, half: str, kernels: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"sinkhorn_iterations: the {half} kernels' launch failed: CUDA "
+                           f"error {err}")
+    for _ in range(kernels):
+        count_launch(sinkhorn_iterations)
+
+
+def sinkhorn_iterations(
+    logK: torch.Tensor,  # [..., N, k] float32, contiguous, on a CUDA device
+    log_c: torch.Tensor,  # [k] float32 log capacities
+    iters: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sinkhorn_plan``'s ``iters`` log-domain iterations (no mask) from u = 0
+    → (u [..., N], v [..., k]), equal to the plain loop's bit for bit: per
+    iteration the kernels of ``csrc/sinkhorn.cu`` (two for the column
+    update's maxima and exps, one for the whole row update, whose sum over k
+    takes torch's order) and torch's own column sum over the exps, the
+    reduction whose order the plain loop's roundings follow. On the current
+    stream, memory from
+    ``torch.empty``, no host sync: it captures into a CUDA graph. It raises
+    on anything else (there is no fallback); ``sinkhorn_iterations.launches``
+    counts the kernels' launches (3 an iteration)."""
+    if logK.dtype != torch.float32 or log_c.dtype != torch.float32:
+        raise TypeError(f"sinkhorn_iterations takes float32, got {logK.dtype} and {log_c.dtype}")
+    if not (logK.is_contiguous() and log_c.is_contiguous()):
+        raise ValueError("sinkhorn_iterations takes contiguous tensors")
+    n, k = (logK.shape[-2], logK.shape[-1]) if logK.dim() >= 2 else (0, 0)
+    lead = tuple(logK.shape[:-2])
+    b = int(np.prod(lead))
+    if not (n >= 1 and 1 <= k <= MAX_CLUSTERS and 1 <= b <= 65535
+            and tuple(log_c.shape) == (k,) and iters >= 1):
+        raise ValueError(f"sinkhorn_iterations takes logK [..., N, k] with 1 <= k <= "
+                         f"{MAX_CLUSTERS}, at most 65535 clouds, log capacities [k] and at least "
+                         f"one iteration, got {tuple(logK.shape)}, {tuple(log_c.shape)}, {iters}")
+    if not _on_card(logK) or log_c.device != logK.device:
+        raise ValueError(f"sinkhorn_iterations runs on a CUDA device, both tensors on it "
+                         f"(logK on {logK.device}, log_c on {log_c.device})")
+    lib = _sinkhorn_lib()
+    dev = logK.device
+    exps = torch.empty_like(logK)
+    partial = torch.empty((b, lib.sinkhorn_blocks(n), k), dtype=torch.float32, device=dev)
+    done = torch.zeros(b, dtype=torch.int32, device=dev)
+    colmax = torch.empty((*lead, k), dtype=torch.float32, device=dev)
+    v = torch.empty((*lead, k), dtype=torch.float32, device=dev)
+    u = torch.empty((*lead, n), dtype=torch.float32, device=dev)  # not read by the first iteration
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i in range(iters):
+            _launched(lib.sinkhorn_columns(logK.data_ptr(), u.data_ptr(), partial.data_ptr(),
+                                           done.data_ptr(), exps.data_ptr(), colmax.data_ptr(),
+                                           b, n, k, int(i == 0), stream), "columns", 2)
+            colsum = exps.sum(dim=-2)
+            _launched(lib.sinkhorn_rows(logK.data_ptr(), colsum.data_ptr(), colmax.data_ptr(),
+                                        log_c.data_ptr(), v.data_ptr(), u.data_ptr(), b, n, k,
+                                        stream), "rows", 1)
+    return u, v
+
+
+sinkhorn_iterations.launches = 0
 
 
 def round_balanced(

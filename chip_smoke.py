@@ -23,7 +23,9 @@ the run (non-zero exit, no result line) when it does not hold:
    of 4, and x as a view into its storage at an offset). The int8 kernel
    must agree with its plain version in every element; its printed rows add
    the bound of its own plan (``design bound``: the recomputed layers and
-   the int8 x_q traffic). Each time is taken on two clocks
+   the int8 x_q traffic). ``sinkhorn_iterations`` (``SINKHORN_CASES``: 1 and 4
+   served clouds, one unbatched preprocessing cloud) must give the plain
+   loop's plan, centroids and assignment bit for bit. Each time is taken on two clocks
    (``kernel_timing.py``): ``ms``, back-to-back calls as a caller makes them,
    which include the wrapper's host time where that is the slower side, and
    ``device_ms``, the same calls replayed from a CUDA graph. ``fused_mlp_chain``'s
@@ -198,7 +200,8 @@ the run (non-zero exit, no result line) when it does not hold:
    replay names the ``fused_mlp_chain`` kernel (``chain_kernel`` of a
    ``Chain``) under ``fused`` and the int8 chain and absmax kernels under
    ``int8``, and the counters grow by 4, and by 2 + 2, per replayed bucket
-   forward, and ``device_stamp``'s by 3; (d) the capture ms of each shape,
+   forward, ``device_stamp``'s by 3 and ``sinkhorn_iterations``' by 900 (the
+   bucket's k-means: 3 an iteration); (d) the capture ms of each shape,
    the graphs held, the cold count equal to the graphs captured, and the
    memory reserved; (e) a warm k = 18 bucket replayed 10 times: its device
    stamps rise in each replay, the stamp kernel launches 3 times a replay,
@@ -207,7 +210,8 @@ the run (non-zero exit, no result line) when it does not hold:
    body's tiling alone. The ``graphs:`` line prints every number beside the
    card;
 15. results -- one ``{"kernels": [...]}`` line (``device_stamp``'s entry
-   holds its launches in phase 14 and (e)'s readings), then as the last line
+   holds its launches in phase 14 and (e)'s readings, ``sinkhorn_iterations``' its
+   launches in phase 14 and phase 3's cases), then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -230,7 +234,7 @@ import numpy as np
 import torch
 
 SEED = 0
-KERNEL_SOURCES = ("fused_mlp", "quantized_mlp", "device_stamp")  # ampnet_tpu_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("fused_mlp", "quantized_mlp", "device_stamp", "sinkhorn")  # csrc/<name>.cu
 HOST_SOURCES = ("balanced_assign",)  # ampnet_tpu_torch/csrc/<name>.cc, built by g++
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 and
 # int8 on the tensor cores, and HBM3
@@ -2782,9 +2786,11 @@ def kernel_launches() -> int:
 def reset_launches() -> None:
     from ampnet_tpu_torch.ops.device_stamp import device_stamp
     from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.kmeans import sinkhorn_iterations
     from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
 
     fused_mlp_chain.launches = quantized_mlp_chain.launches = device_stamp.launches = 0
+    sinkhorn_iterations.launches = 0
 
 
 def timed_steps(step, state, batch, n) -> tuple:
@@ -3663,6 +3669,7 @@ GRAPH_RUNS = {
 }
 GRAPH_REPLAYS = 3  # replayed bucket forwards counted in (c)
 STAMPS_PER_REPLAY = 3  # device_stamp launches in a bucket graph
+SINKHORN_PER_REPLAY = 3 * 30 * 10  # sinkhorn_iterations launches in a k > 1 bucket graph
 # (e): replays of the k = 18 bucket whose stamps are read, and of each graph
 # the CUDA events time; how far a stamp interval's median may lie from its
 # events' median (the stamps and the events bracket the same nodes)
@@ -3842,6 +3849,7 @@ def graph_phase(model, cfg, dev, card) -> tuple:
     from ampnet_tpu_torch.core.profiling import SpanGroup, Spans
     from ampnet_tpu_torch.infer.tiled import TiledInferencer
     from ampnet_tpu_torch.ops.device_stamp import device_stamp
+    from ampnet_tpu_torch.ops.kmeans import sinkhorn_iterations
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 14)
@@ -3939,7 +3947,8 @@ def graph_phase(model, cfg, dev, card) -> tuple:
         reset_launches()  # the main path's run starts here
         for _ in range(GRAPH_REPLAYS):
             tt.predict_many(first[:1], seeds=[0])
-        counts = {**launch_counts(), "device_stamp": device_stamp.launches}  # ... and ends here
+        counts = {**launch_counts(), "device_stamp": device_stamp.launches,
+                  "sinkhorn_iterations": sinkhorn_iterations.launches}  # ... and ends here
         launches[f"graph_replays_{run}"] = counts
         out[f"c_{run}"] = {"traced_per_replay": {"fused_chain_kernel": fused_k,
                                                  "int8_chain_kernel_passes": int8_k,
@@ -3951,7 +3960,8 @@ def graph_phase(model, cfg, dev, card) -> tuple:
             raise RuntimeError(f"(c) {run}: a traced replay ran {chains} and {absmax} absmax "
                                f"kernels, want {want}")
         if counts != {**{k: v * GRAPH_REPLAYS for k, v in want.items()},
-                      "device_stamp": STAMPS_PER_REPLAY * GRAPH_REPLAYS}:
+                      "device_stamp": STAMPS_PER_REPLAY * GRAPH_REPLAYS,
+                      "sinkhorn_iterations": SINKHORN_PER_REPLAY * GRAPH_REPLAYS}:
             raise RuntimeError(f"(c) {run}: {GRAPH_REPLAYS} replays counted {counts}")
     _say("  (c) " + json.dumps({k: v for k, v in out.items() if k.startswith("c_")}))
 
@@ -3967,6 +3977,69 @@ def graph_phase(model, cfg, dev, card) -> tuple:
     _say("graphs: " + json.dumps(out))
     del inferencers
     return launches, out["e_stamps"]
+
+
+SINKHORN_CASES = {  # name → (clouds, or None for one unbatched [N, F] cloud; k; cap)
+    "serve_x1": (1, 18, 4096),
+    "serve_x4": (4, 18, 4096),
+    "preprocess": (None, 9, 2048),
+}
+
+
+def sinkhorn_phase(dev) -> list:
+    """Phase 3d: ``sinkhorn_iterations`` (``sinkhorn_plan``'s iterations) at
+    SINKHORN_CASES, on clouds drawn as the served ones (x, y uniform on
+    [-1, 1], NDVI normal x 0.5): ``balanced_kmeans`` through the kernels
+    must give the plain loop's assignment and centroids, and
+    ``sinkhorn_plan`` its plan, bit for bit. ``balanced_kmeans`` timed on both
+    clocks beside the plain loop's device time and the bound of the
+    log-domain loop's exps (``kernel_timing.py``)."""
+    from kernel_timing import SFU_EXPS_PER_S, device_ms, host_ms
+
+    from ampnet_tpu_torch.ops import kmeans
+
+    take = kmeans._kernels_take
+
+    def plain(call):
+        kmeans._kernels_take = lambda *args: False
+        try:
+            return call()
+        finally:
+            kmeans._kernels_take = take
+
+    rows = []
+    for case, (b, k, cap) in SINKHORN_CASES.items():
+        n = k * cap
+        rng = np.random.default_rng(SEED + 3)
+        x = rng.normal(size=(b or 1, n, 3)).astype(np.float32) * 0.5
+        x[..., :2] = rng.uniform(-1.0, 1.0, size=(b or 1, n, 2))
+        init = np.stack([rng.permutation(n)[:k] for _ in range(b or 1)])
+        feats, init = torch.from_numpy(x).to(dev), torch.from_numpy(init).to(dev)
+        if b is None:
+            feats, init = feats[0], init[0]
+        call = lambda: kmeans.balanced_kmeans(feats, k, capacities=(cap,) * k, init_idx=init)
+        with torch.inference_mode():
+            got, cent = call()
+            want, want_cent = plain(call)
+            cost = kmeans._sqdist(feats, cent)
+            caps = torch.full((k,), float(cap), device=dev)
+            plan = kmeans.sinkhorn_plan(cost, caps, 0.05)
+            same_plan = torch.equal(plan, plain(lambda: kmeans.sinkhorn_plan(cost, caps, 0.05)))
+            row = {"name": f"sinkhorn_iterations:{case}", "case": case,
+                   "shape": list(feats.shape), "k": k, "route": "cuda",
+                   "source": "ampnet_tpu_torch/csrc/sinkhorn.cu", "replaces": None,
+                   "moved_vs_plain": int((got != want).sum()),
+                   "centroids_equal": torch.equal(cent, want_cent), "plan_equal": same_plan,
+                   "ms": (host_ms(call, 3) + host_ms(call, 3)) / 2,
+                   "device_ms": (device_ms(call, 3) + device_ms(call, 3)) / 2,
+                   "plain_device_ms": plain(lambda: device_ms(call, 2))}
+        # the log-domain loop's 2·N·k exps a Sinkhorn iteration, 300 iterations
+        row["bound_ms"] = 2 * n * k * 300 * (b or 1) / SFU_EXPS_PER_S * 1e3
+        _say(f"  sinkhorn {case}: " + json.dumps(row))
+        if row["moved_vs_plain"] or not (row["centroids_equal"] and same_plan):
+            raise RuntimeError(f"sinkhorn {case}: not the plain loop's bits: " + json.dumps(row))
+        rows.append(row)
+    return rows
 
 
 def build_phase():
@@ -4014,6 +4087,7 @@ def main() -> int:
     fused_total, fused_cases = kernel_phase(model, dev)
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
+    sinkhorn_cases = sinkhorn_phase(dev)
 
     _say("[4/15] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
@@ -4125,8 +4199,18 @@ def main() -> int:
                    "route": "cuda", "source": "ampnet_tpu_torch/csrc/device_stamp.cu",
                    "replaces": None, "launches_by_run": stamp_runs,
                    "launches": sum(stamp_runs.values()), "against_cuda_events": stamps}
+    # sinkhorn_iterations: 900 launches in every k > 1 bucket graph replay;
+    # counted where phase 14 counted them, held against the plain loop in phase 3
+    sinkhorn_runs = {run: counts["sinkhorn_iterations"]
+                     for run, counts in graph_launches.items() if "sinkhorn_iterations" in counts}
+    sinkhorn_total = {"name": "sinkhorn_iterations",
+                      "case": "900 a k > 1 bucket graph replay (3 an iteration)",
+                      "route": "cuda", "source": "ampnet_tpu_torch/csrc/sinkhorn.cu",
+                      "replaces": None, "launches_by_run": sinkhorn_runs,
+                      "launches": sum(sinkhorn_runs.values()), "cases": sinkhorn_cases}
     _say(json.dumps({"kernels": [{**fused_total, "cases": fused_cases},
-                                 {**int8_total, "cases": int8_cases}, stamp_total]}))
+                                 {**int8_total, "cases": int8_cases}, stamp_total,
+                                 sinkhorn_total]}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with the card::
     python3 kernel_timing.py --kernels int8      # quantized_mlp_chain only (or: fused)
     python3 kernel_timing.py --variants          # ... and variants of their sources
     python3 kernel_timing.py --kernels int8 --passes  # ... and each launch of one int8 call
+    python3 kernel_timing.py --kernels sinkhorn  # the k-means at 1 and 4 served clouds
 
 Two clocks, both CUDA events:
 
@@ -37,7 +38,15 @@ instruction in place of the integer formula, which gives the same bits.
 prints each device operation of one call (memset, absmax pass, one launch
 per layer pass) with its mean device time, in launch order.
 
-Prints one JSON line per chain and, last, the card's ``nvidia-smi`` name
+``--kernels sinkhorn`` times ``balanced_kmeans`` with its Sinkhorn iterations
+on ``sinkhorn_iterations`` (``csrc/sinkhorn.cu`` and torch's column sum) at the
+served bucket, B clouds of 73,728 points in k = 18 clusters of 4,096 (B = 1
+and 4), beside the plain loop (device clock only) and the bound of the
+log-domain loop's 2·N·k exps a Sinkhorn iteration, 300 iterations, at the
+card's special-function rate; it raises unless both give the same
+assignment and centroids bit for bit.
+
+Prints one JSON line per chain (or clouds) and, last, the card's ``nvidia-smi`` name
 and power limit. Weights are seeded random (variance 1/fan_in; the int8
 chains quantized per channel from them): a dense chain's time does not
 depend on their values.
@@ -353,10 +362,47 @@ def time_passes() -> None:
                               "sum_us": sum(times)}), flush=True)
 
 
+# exps a second: 16 a clock on each of the H100 SXM's 132 SMs at 1.755 GHz
+SFU_EXPS_PER_S = 16 * 132 * 1.755e9
+SINKHORN_SERVED = (18, 4096)  # k, cap of the served bucket
+
+
+def time_sinkhorn(batches=(1, 4)) -> None:
+    """``balanced_kmeans`` on the kernels against the plain loop at the
+    served bucket."""
+    from ampnet_tpu_torch.ops import kmeans
+
+    k, cap = SINKHORN_SERVED
+    n = k * cap
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    take = kmeans._kernels_take
+    for b in batches:
+        feats = torch.rand((b, n, 3), generator=gen, device="cuda")
+        init = torch.stack([torch.randperm(n, generator=gen, device="cuda")[:k]
+                            for _ in range(b)])
+        call = lambda: kmeans.balanced_kmeans(feats, k, capacities=(cap,) * k, init_idx=init)
+        with torch.inference_mode():
+            got = call()
+            kmeans._kernels_take = lambda *args: False
+            try:
+                want = call()
+                plain_ms = device_ms(call, 2)
+            finally:
+                kmeans._kernels_take = take
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"sinkhorn at B = {b}: not the plain loop's tiling")
+            row = {"kernel": "sinkhorn_iterations", "shape": [b, n, 3], "k": k,
+                   "host_ms": host_ms(call, 5), "device_ms": device_ms(call, 5),
+                   "plain_device_ms": plain_ms}
+        row["bound_ms"] = 2 * n * k * 300 * b / SFU_EXPS_PER_S * 1e3
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--kernels", choices=("all", "fused", "int8"), default="all",
-                        help="which kernels to time (default: both)")
+    parser.add_argument("--kernels", choices=("all", "fused", "int8", "sinkhorn"), default="all",
+                        help="which kernels to time (default: the two chains)")
     parser.add_argument("--variants", action="store_true",
                         help="also time variants of the kernels' sources at the served chains")
     parser.add_argument("--passes", action="store_true",
@@ -371,6 +417,8 @@ def main() -> int:
         time_chains()
     if "int8" in kernels:
         time_quantized()
+    if "sinkhorn" in kernels:
+        time_sinkhorn()
     if args.variants:
         time_variants(kernels)
     if args.passes:
