@@ -14,6 +14,18 @@ same points:
   ``argmin`` passes.
 
 Indices are taken without gradient; features are gathered with them.
+
+Each stage runs inside a ``torch.profiler.record_function`` range, so a
+profiler trace attributes the device time each one launches (a range costs a
+few microseconds a call, about 12 a forward; nothing is recorded without an
+active profiler): ``pointnet2.fps`` (farthest point sampling and the centres'
+gather), ``pointnet2.ball_query``, ``pointnet2.group`` (the index gathers of
+xyz and features and their concatenation), ``pointnet2.sa_mlp`` (the set
+abstraction's MLP and its max over each group), ``pointnet2.three_nn`` (the
+distances, the three nearest and the inverse-distance interpolation) and
+``pointnet2.fp_mlp`` (the concatenation with the skip features and the
+feature propagation's MLP). Their backward runs on autograd's thread,
+outside the ranges.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ampnet_tpu_torch.models.layers import (
     MaskedBatchNorm,
@@ -92,11 +105,15 @@ class SetAbstraction(_MLP):
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor, npoint: int):
         # xyz [B, N, 3]; feats [B, N, C]
-        new_xyz = gather_points(xyz, batched_farthest_point_sampling(xyz, npoint))  # [B, S, 3]
-        idx = ball_query(new_xyz, xyz, self.radius, self.nsample)  # [B, S, ns]
-        grouped = torch.cat([gather_points(xyz, idx) - new_xyz[:, :, None],  # relative
-                             gather_points(feats, idx)], -1)
-        return new_xyz, self.run(grouped).amax(dim=2)  # [B, S, mlp[-1]]
+        with record_function("pointnet2.fps"):
+            new_xyz = gather_points(xyz, batched_farthest_point_sampling(xyz, npoint))  # [B, S, 3]
+        with record_function("pointnet2.ball_query"):
+            idx = ball_query(new_xyz, xyz, self.radius, self.nsample)  # [B, S, ns]
+        with record_function("pointnet2.group"):
+            grouped = torch.cat([gather_points(xyz, idx) - new_xyz[:, :, None],  # relative
+                                 gather_points(feats, idx)], -1)
+        with record_function("pointnet2.sa_mlp"):
+            return new_xyz, self.run(grouped).amax(dim=2)  # [B, S, mlp[-1]]
 
 
 def three_nn(d2: torch.Tensor):
@@ -121,14 +138,16 @@ class FeaturePropagation(_MLP):
         if xyz_coarse.shape[1] == 1:
             interp = feats_coarse.expand(*xyz_fine.shape[:2], feats_coarse.shape[-1])
         else:
-            d2, idx = three_nn(_sqdist(xyz_fine, xyz_coarse))  # [B, N, 3]
-            w = 1.0 / d2.clamp_min(1e-8)
-            w = w / w.sum(dim=-1, keepdim=True)
-            nbrs = gather_points(feats_coarse, idx)  # [B, N, 3, C]
-            dt = torch.promote_types(w.dtype, nbrs.dtype)  # float32 under bfloat16 nbrs
-            interp = torch.einsum("bnk,bnkc->bnc", w.to(dt), nbrs.to(dt))
-        h = interp if feats_fine is None else torch.cat([feats_fine, interp], -1)
-        return self.run(h)
+            with record_function("pointnet2.three_nn"):
+                d2, idx = three_nn(_sqdist(xyz_fine, xyz_coarse))  # [B, N, 3]
+                w = 1.0 / d2.clamp_min(1e-8)
+                w = w / w.sum(dim=-1, keepdim=True)
+                nbrs = gather_points(feats_coarse, idx)  # [B, N, 3, C]
+                dt = torch.promote_types(w.dtype, nbrs.dtype)  # float32 under bfloat16 nbrs
+                interp = torch.einsum("bnk,bnkc->bnc", w.to(dt), nbrs.to(dt))
+        with record_function("pointnet2.fp_mlp"):
+            h = interp if feats_fine is None else torch.cat([feats_fine, interp], -1)
+            return self.run(h)
 
 
 class PointNet2Segmenter(nn.Module):
