@@ -7,20 +7,35 @@ Replaces the host-side NumPy paths of the reference:
   ``collate_fns.py:33-41``;
 * O(N·S) farthest-point-sampling loop — ``utils/utils.py:889-933``.
 
-``farthest_point_sampling`` is a loop over the S samples on the tensor's
-device with one O(N) distance update per step and no host sync inside the
-loop (the selected index stays a device tensor);
-``batched_farthest_point_sampling`` runs it over B clouds at once (PointNet++). It is the plain version
-that the native FPS (``native.fps_native``) is held against. Its squared
-distance sums the three axes in one fixed order, ``(dx² + dy²) + dz²``, on
-every device.
+``batched_farthest_point_sampling`` samples B clouds at once (PointNet++);
+``farthest_point_sampling`` one cloud through it. It routes by device: a
+CUDA tensor runs one launch of the hand-written kernel of ``csrc/fps.cu``
+(``batched_farthest_point_sampling_kernel``) for the whole loop, and raises
+where the kernel does not take the input (there is no fallback); any other
+tensor runs the plain version, ``batched_farthest_point_sampling_plain``: a
+loop over the S samples on the tensor's device with one O(B·N) distance
+update per step and no host sync inside the loop (the selected index stays a
+device tensor). The plain version is what the kernel is held to on the card
+and the native FPS (``native.fps_native``) on the host. Both compute the
+squared distance as ``(dx² + dy²) + dz²``, ``dx = x - x_last`` and ``dx²``
+as ``dx * dx``, each operation rounded to float32 in that order, keep
+``torch.minimum``'s running minimum (NaN wins) and take ``torch.argmax``'s
+first maximum (NaN counts as the maximum), so the kernel picks the plain
+loop's indices bit for bit. ``batched_farthest_point_sampling.launches``
+counts the kernel's launches (one a call; a CUDA graph's replays included,
+``ops/launch_count.py``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import Optional
 
 import torch
+
+from ampnet_tpu_torch.ops import cuda_build
+from ampnet_tpu_torch.ops.launch_count import count_launch
 
 
 def resample_to_fixed_size(
@@ -66,15 +81,40 @@ def farthest_point_sampling(
     return batched_farthest_point_sampling(points[None], n_samples, mask)[0]
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
 def batched_farthest_point_sampling(
     points: torch.Tensor,  # [B, N, >=3]
     n_samples: int,
-    valid_mask: Optional[torch.Tensor] = None,  # [B, N]
+    valid_mask: Optional[torch.Tensor] = None,  # [B, N] bool
 ) -> torch.Tensor:
     """``farthest_point_sampling`` of each of B clouds at once → [B, n_samples]
-    int64: one loop over the samples, each step an O(B·N) update. Ties go to
-    the lowest index (``argmax`` takes the first maximum, as ``jnp.argmax``
-    does)."""
+    int64 on ``points``' device. Ties go to the lowest index (``argmax`` takes
+    the first maximum, as ``jnp.argmax`` does). On a CUDA tensor one launch of
+    ``csrc/fps.cu``, else the plain loop; both pick the same indices."""
+    if not _on_card(points):
+        return batched_farthest_point_sampling_plain(points, n_samples, valid_mask)
+    mask = None if valid_mask is None else valid_mask.contiguous()
+    return batched_farthest_point_sampling_kernel(points[..., :3].float().contiguous(),
+                                                  n_samples, mask)
+
+
+batched_farthest_point_sampling.launches = 0
+
+
+def batched_farthest_point_sampling_plain(
+    points: torch.Tensor,  # [B, N, >=3]
+    n_samples: int,
+    valid_mask: Optional[torch.Tensor] = None,  # [B, N] bool
+) -> torch.Tensor:
+    """The plain version: one loop over the samples on ``points``' device,
+    each step an O(B·N) update → [B, n_samples] int64. Starts at index 0, or
+    at the first valid point under ``valid_mask``. Masked points start at
+    -inf, so a cloud with a valid point never picks one (NaN coordinates
+    aside), one without returns index 0 throughout, and once every valid
+    point lies at distance 0 the lowest valid index repeats."""
     xyz = points[..., :3].float()
     b, n = xyz.shape[:2]
     rows = torch.arange(b, device=xyz.device)
@@ -92,6 +132,80 @@ def batched_farthest_point_sampling(
         last = torch.argmax(dists, dim=1)
         selected[:, i] = last
     return selected
+
+
+_lib_lock = threading.Lock()
+
+
+def _fps_lib() -> ctypes.CDLL:
+    """The built ``csrc/fps.cu``, declared once."""
+    lib = cuda_build.load("fps")
+    with _lib_lock:
+        if lib.fps_sample.argtypes is None:
+            lib.fps_scratch_points.restype = ctypes.c_int
+            lib.fps_scratch_points.argtypes = [ctypes.c_int]
+            lib.fps_sample.restype = ctypes.c_int
+            lib.fps_sample.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+    return lib
+
+
+def batched_farthest_point_sampling_kernel(
+    xyz: torch.Tensor,  # [B, N, 3] float32, contiguous, on a CUDA device
+    n_samples: int,
+    valid_mask: Optional[torch.Tensor] = None,  # [B, N] bool, contiguous, on xyz's device
+) -> torch.Tensor:
+    """The whole sampling loop as one launch of ``csrc/fps.cu`` → [B,
+    n_samples] int64, equal to ``batched_farthest_point_sampling_plain``'s
+    bit for bit. On the current stream, memory from ``torch.empty``, no host
+    sync: it captures into a CUDA graph. It raises on anything else (there
+    is no fallback) and counts its launch on
+    ``batched_farthest_point_sampling.launches``."""
+    if xyz.dtype != torch.float32:
+        raise TypeError(f"batched_farthest_point_sampling_kernel takes float32 xyz, got "
+                        f"{xyz.dtype}")
+    if not (xyz.dim() == 3 and xyz.shape[-1] == 3 and 1 <= xyz.shape[0] < 2**31
+            and 1 <= xyz.shape[1] < 2**31 and 1 <= n_samples < 2**31):
+        raise ValueError(f"batched_farthest_point_sampling_kernel takes xyz [B, N, 3] with B, "
+                         f"N >= 1 and at least one sample, got {tuple(xyz.shape)}, {n_samples}")
+    if not xyz.is_contiguous():
+        raise ValueError("batched_farthest_point_sampling_kernel takes a contiguous xyz")
+    b, n = xyz.shape[:2]
+    if valid_mask is not None:
+        if valid_mask.dtype != torch.bool:
+            raise TypeError(f"batched_farthest_point_sampling_kernel takes a bool valid_mask, "
+                            f"got {valid_mask.dtype}")
+        if tuple(valid_mask.shape) != (b, n) or not valid_mask.is_contiguous():
+            raise ValueError(f"batched_farthest_point_sampling_kernel takes a contiguous "
+                             f"valid_mask [{b}, {n}], got {tuple(valid_mask.shape)}")
+    if not _on_card(xyz) or (valid_mask is not None and valid_mask.device != xyz.device):
+        raise ValueError(f"batched_farthest_point_sampling_kernel runs on a CUDA device, "
+                         f"every tensor on it (xyz on {xyz.device}, valid_mask on "
+                         f"{None if valid_mask is None else valid_mask.device})")
+    selected = torch.empty((b, n_samples), dtype=torch.int64, device=xyz.device)
+    minima = torch.empty((b, _fps_lib().fps_scratch_points(n)), dtype=torch.float32,
+                         device=xyz.device)
+    _fps_sample(xyz, valid_mask, minima, selected)
+    count_launch(batched_farthest_point_sampling)
+    return selected
+
+
+@torch.library.custom_op("ampnet_tpu_torch::fps_sample", mutates_args=("minima", "selected"))
+def _fps_sample(xyz: torch.Tensor, valid_mask: Optional[torch.Tensor], minima: torch.Tensor,
+                selected: torch.Tensor) -> None:
+    """One launch of ``csrc/fps.cu`` into ``selected`` (``minima`` its
+    scratch), as an operator of torch's dispatcher: a profiler links the
+    kernel to the op, and so to the ranges around the call; a bare ctypes
+    launch is linked to no op."""
+    b, n = xyz.shape[:2]
+    with torch.cuda.device(xyz.device):
+        err = _fps_lib().fps_sample(
+            xyz.data_ptr(), None if valid_mask is None else valid_mask.data_ptr(),
+            minima.data_ptr() if minima.numel() else None, selected.data_ptr(), b, n,
+            selected.shape[1], torch.cuda.current_stream(xyz.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"batched_farthest_point_sampling_kernel: the launch failed: CUDA "
+                           f"error {err}")
 
 
 def fps_points(points: torch.Tensor, n_samples: int) -> torch.Tensor:

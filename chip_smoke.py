@@ -25,7 +25,11 @@ the run (non-zero exit, no result line) when it does not hold:
    the bound of its own plan (``design bound``: the recomputed layers and
    the int8 x_q traffic). ``sinkhorn_iterations`` (``SINKHORN_CASES``: 1 and 4
    served clouds, one unbatched preprocessing cloud) must give the plain
-   loop's plan, centroids and assignment bit for bit. Each time is taken on two clocks
+   loop's plan, centroids and assignment bit for bit, and
+   ``batched_farthest_point_sampling`` (``FPS_LEVELS``: the whole-cloud
+   PointNet++ step's three levels, 32 x 16,384 -> 1,024, 32 x 1,024 -> 256
+   and 32 x 256 -> 64, on two seeds, and the first level under a mask) the
+   plain loop's indices, one launch a call. Each time is taken on two clocks
    (``kernel_timing.py``): ``ms``, back-to-back calls as a caller makes them,
    which include the wrapper's host time where that is the slower side, and
    ``device_ms``, the same calls replayed from a CUDA graph. ``fused_mlp_chain``'s
@@ -79,8 +83,8 @@ the run (non-zero exit, no result line) when it does not hold:
    Sinkhorn assignment on the card and on the CPU from one start (exact
    sizes, agreement >= 0.999), and the native MCF's cost <= the plain
    greedy's on its cost matrix; (d) the native FPS, naive and grid, equal to
-   the torch FPS on the card on a window of each tile, and ``fps`` over
-   every window; (e) ``infer`` of both tiles with phase 6's checkpoint under
+   the torch FPS on the card on a window of each tile (one launch of
+   ``csrc/fps.cu`` a window, counted), and ``fps`` over every window; (e) ``infer`` of both tiles with phase 6's checkpoint under
    ``--backend fused`` and ``--backend int8``: labels equal ``predict_many``
    on the same windows and seeds, each classified LAS carries them at every
    unfiltered point, ``tile_metrics.json`` holds both tiles, launches 4 and
@@ -109,9 +113,11 @@ the run (non-zero exit, no result line) when it does not hold:
    ensemble (phase 6's checkpoint beside the GRU); GRU ``export`` → ``.pth``
    → ``test`` with equal labels; ``demo --arch pointnet2`` at the verify
    recipe; (f) ``test --backend fused`` of the GRU exits 1 with the JAX
-   message. Neither kernel launches in any of these runs (the JAX package
-   runs the families only under ``xla``). The ``families:`` line prints each
-   run's numbers beside the card;
+   message. Neither MLP-chain kernel launches in any of these runs (the JAX
+   package runs the families only under ``xla``); the FPS kernel launches
+   exactly three times a PointNet++ forward that the card runs (one a set
+   abstraction), more than 0 in each PointNet++ run. The ``families:`` line
+   prints each run's numbers beside the card;
 10. geometry -- the eigenfeature columns, the edge block, the geometry tokens
    and distillation at full published width (``geometry_phase``): (a)
    ``preprocess --geom_features`` of phase 8's tiles (``--geom_k 24``, then
@@ -211,7 +217,9 @@ the run (non-zero exit, no result line) when it does not hold:
    card;
 15. results -- one ``{"kernels": [...]}`` line (``device_stamp``'s entry
    holds its launches in phase 14 and (e)'s readings, ``sinkhorn_iterations``' its
-   launches in phase 14 and phase 3's cases), then as the last line
+   launches in phase 14 and phase 3's cases, ``batched_farthest_point_sampling``'
+   its launches in phase 8's windows and phase 9's PointNet++ runs, and phase
+   3's cases), then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -234,7 +242,8 @@ import numpy as np
 import torch
 
 SEED = 0
-KERNEL_SOURCES = ("fused_mlp", "quantized_mlp", "device_stamp", "sinkhorn")  # csrc/<name>.cu
+KERNEL_SOURCES = ("fused_mlp", "quantized_mlp", "device_stamp", "sinkhorn",
+                  "fps")  # csrc/<name>.cu
 HOST_SOURCES = ("balanced_assign",)  # ampnet_tpu_torch/csrc/<name>.cc, built by g++
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 and
 # int8 on the tensor cores, and HBM3
@@ -1834,7 +1843,8 @@ def same_outputs(dir_a, dir_b) -> int:
 def host_solver_checks(pre_dir, dev) -> dict:
     """Phase 8 (c)-(d) on the preprocessed windows: the Sinkhorn assignment on
     the card and on the CPU from one start (exact sizes, agreement), the
-    native FPS (naive and grid) against the torch FPS on the card, and the
+    native FPS (naive and grid) against the torch FPS on the card (its
+    kernel, ``csrc/fps.cu``, on a whole window), and the
     native MCF's cost against the plain greedy's on one window."""
     from ampnet_tpu_torch.data.io_utils import load_cloud
     from ampnet_tpu_torch.native import (
@@ -1844,7 +1854,10 @@ def host_solver_checks(pre_dir, dev) -> dict:
         fps_native,
     )
     from ampnet_tpu_torch.ops.kmeans import num_tiles_train
-    from ampnet_tpu_torch.ops.sampling import farthest_point_sampling
+    from ampnet_tpu_torch.ops.sampling import (
+        batched_farthest_point_sampling,
+        farthest_point_sampling,
+    )
     from ampnet_tpu_torch.preproc.tiling import KMEANS_COLS, sinkhorn_assign
 
     out = {}
@@ -1869,7 +1882,9 @@ def host_solver_checks(pre_dir, dev) -> dict:
                            f"{out['sinkhorn_card_cpu_agreement']}")
     # the native FPS against the torch FPS on the card, one window of each tile
     fps_ms = {"native_naive": 0.0, "native_grid": 0.0, "torch_card": 0.0}
-    for name in (clouds[0], clouds[-1]):
+    windows = (clouds[0], clouds[-1])
+    batched_farthest_point_sampling.launches = 0  # one launch a window from here
+    for name in windows:
         xyz = load_cloud(os.path.join(pre_dir, name))[:, :3]
         s = min(FPS_SAMPLES, xyz.shape[0])
         torch.cuda.synchronize()
@@ -1885,6 +1900,11 @@ def host_solver_checks(pre_dir, dev) -> dict:
                 raise RuntimeError(f"{name}: native FPS ({method}) differs from the torch "
                                    f"FPS on the card from sample {first} of {s}")
     out["fps_ms_two_windows"] = fps_ms
+    out["fps_launches"] = batched_farthest_point_sampling.launches
+    if out["fps_launches"] != len(windows):
+        raise RuntimeError(f"the torch FPS on the card launched its kernel "
+                           f"{out['fps_launches']} times for {len(windows)} windows; want one "
+                           f"a window")
     # one window's cost matrix: the exact solver against the plain greedy
     _, cents = balanced_kmeans_native(feats, k, np.full(k, npts, np.int32), seed=SEED)
     cost = ((feats[:, None, :] - cents[None]) ** 2).sum(-1).astype(np.float32)
@@ -2145,31 +2165,68 @@ def family_steps(data_dir, names, dev) -> dict:
     return out
 
 
+# FPS kernel launches a PointNet++ forward: one a set abstraction
+PN2_FPS_PER_FORWARD = 3
+
+
 @contextlib.contextmanager
-def no_kernel_launches(run):
-    """Both kernels' counters set to 0 before ``run`` and read after: the
-    families run only plain torch products, as the JAX package runs them only
-    under ``xla``."""
+def no_kernel_launches(run, fps_runs=None):
+    """Both MLP-chain kernels' counters, and the FPS kernel's, set to 0
+    before ``run`` and read after: the families run only plain torch
+    products, as the JAX package runs them only under ``xla``, but for
+    PointNet++'s sampling, which launches ``csrc/fps.cu`` exactly
+    ``PN2_FPS_PER_FORWARD`` times a ``PointNet2Segmenter`` forward that the
+    card runs. Those forwards are counted as the kernels count launches
+    (``count_launch``: an eager forward, or a bucket graph's replay of the
+    forward it captured). Where ``fps_runs`` is given, ``run`` is a PointNet++
+    run: it must run a forward, and ``fps_runs[run]`` gets its launches and
+    forwards."""
+    from ampnet_tpu_torch.models.pointnet2 import PointNet2Segmenter
     from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
+    from ampnet_tpu_torch.ops.launch_count import count_launch
     from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
+    from ampnet_tpu_torch.ops.sampling import batched_farthest_point_sampling
+
+    def pointnet2_forwards():
+        """The counter of the PointNet++ forwards the card runs."""
+
+    forward = PointNet2Segmenter.forward
+
+    def counted_forward(self, *args, **kw):
+        count_launch(pointnet2_forwards)
+        return forward(self, *args, **kw)
 
     counters = {"fused_mlp_chain": fused_mlp_chain, "quantized_mlp_chain": quantized_mlp_chain}
-    for fn in counters.values():
+    for fn in (*counters.values(), batched_farthest_point_sampling, pointnet2_forwards):
         fn.launches = 0
-    yield
+    PointNet2Segmenter.forward = counted_forward
+    try:
+        yield
+    finally:
+        PointNet2Segmenter.forward = forward
     launched = {name: fn.launches for name, fn in counters.items()}
     if any(launched.values()):
         raise RuntimeError(f"{run}: kernels launched {launched}; the families run none")
+    fps = {"launches": batched_farthest_point_sampling.launches,
+           "pointnet2_forwards": pointnet2_forwards.launches}
+    if fps["launches"] != PN2_FPS_PER_FORWARD * fps["pointnet2_forwards"] or (
+            fps_runs is not None and not fps["pointnet2_forwards"]):
+        raise RuntimeError(f"{run}: the FPS kernel launched {fps['launches']} times in "
+                           f"{fps['pointnet2_forwards']} PointNet++ forwards; want "
+                           f"{PN2_FPS_PER_FORWARD} each, in at least one forward")
+    if fps_runs is not None:
+        fps_runs[run] = fps
 
 
-def family_cli(run, argv, expect=0):
-    """One command line through ``cli.main.main`` on the card with 0 kernel
-    launches → (stdout, stderr, probe record, wall s); the exit code must be
-    ``expect``."""
+def family_cli(run, argv, expect=0, fps_runs=None):
+    """One command line through ``cli.main.main`` on the card with 0
+    MLP-chain kernel launches and the FPS kernel's three a PointNet++ forward
+    (``no_kernel_launches``, which ``fps_runs`` is passed to) → (stdout,
+    stderr, probe record, wall s); the exit code must be ``expect``."""
     from ampnet_tpu_torch.cli.main import main as cli_main
 
     out, err = io.StringIO(), io.StringIO()
-    with no_kernel_launches(run), eval_probe() as rec:
+    with no_kernel_launches(run, fps_runs), eval_probe() as rec:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli_main(argv)
@@ -2242,7 +2299,10 @@ def families_phase(attention_ckpt, dev, card, work) -> dict:
     ``predict_many``; ``test`` of an ``attention,gru`` ensemble; GRU
     ``export`` → ``.pth`` → ``test``, labels equal; ``demo --arch pointnet2``;
     (f) ``--backend fused`` with the GRU checkpoint exits 1. Every run
-    launches neither kernel. Prints the ``families:`` line."""
+    launches neither MLP-chain kernel, and the FPS kernel three times a
+    PointNet++ forward (``no_kernel_launches``). Prints the ``families:``
+    line, whose ``fps_launches`` holds each PointNet++ run's launches and
+    forwards, and returns it."""
     from ampnet_tpu_torch.core.checkpoint import load_model
     from ampnet_tpu_torch.data.datasets import (
         CloudDataset,
@@ -2266,27 +2326,30 @@ def families_phase(attention_ckpt, dev, card, work) -> dict:
     test_base = ["test", data, "--path_list_files", data, *dev_arg]
     test_ds = EvalCloudDataset(data, test_names)
     samples = [test_ds[i] for i in range(len(test_ds))]
-    ckpts = {}
+    ckpts, fps_runs = {}, {}
     for arch, task in FAM_RUNS:
         run = f"{arch}_{task}"
         out_dir = os.path.join(work, f"fam_{run}")
         windowed = arch in ("attention", "gru")
         points = TRAIN_POINTS if windowed else WHOLE_POINTS
+        pn2_runs = fps_runs if arch == "pointnet2" else None
         stdout, _, _, wall = family_cli(f"train {run}", [
             "train", data, "--path_list_files", data, "--out_path", out_dir, "--arch", arch,
             "--task", task, "--epochs", "2", "--batch_size", str(TRAIN_BATCH),
             "--number_of_points", str(points), "--number_of_windows", str(TRAIN_WINDOWS),
-            "--seed", str(SEED), *dev_arg])
+            "--seed", str(SEED), *dev_arg], fps_runs=pn2_runs)
         last = last_json(stdout[:stdout.rindex("}") + 1])
         if not np.isfinite(last["loss"]):
             raise RuntimeError(f"train {run}: {last}")
         ckpt = ckpts[run] = os.path.join(out_dir, "checkpoints", f"{run}_best")
-        rec_line = {"train_wall_s": wall, "val_loss": last["loss"],
-                    **warm_step(data, names[:FAM_TRAIN], arch, task, dev)}
+        with no_kernel_launches(f"warm step {run}", pn2_runs):
+            warm = warm_step(data, names[:FAM_TRAIN], arch, task, dev)
+        rec_line = {"train_wall_s": wall, "val_loss": last["loss"], **warm}
         cfg, model = load_model(ckpt, dev)
         if task == "segmentation":
             stdout, _, rec, wall = family_cli(f"test {run}", [*test_base, "--model_checkpoint",
-                                                              ckpt, "--out_path", out_dir])
+                                                              ckpt, "--out_path", out_dir],
+                                              fps_runs=pn2_runs)
             direct = TiledInferencer(model, cfg, max_clusters=18 if windowed else 1, device=dev)
             labels = direct.predict_many([s["points"] for s in samples],
                                          seeds=list(range(len(samples))))
@@ -2327,15 +2390,19 @@ def families_phase(attention_ckpt, dev, card, work) -> dict:
                 test_wall_s=wall, test_clouds_per_sec=len(test_names) / wall)
         line["runs"][run] = rec_line
         _say(f"  (c-d) {run}: " + json.dumps(rec_line))
-    line.update(family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work))
+    line.update(family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work,
+                               fps_runs))
+    line["fps_launches"] = fps_runs
     line["phase_s"] = time.perf_counter() - t_phase
     _say("families: " + json.dumps(line))
     _say(f"  families phase: {line['phase_s']:.2f} s")
     return line
 
 
-def family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work) -> dict:
-    """(e)-(f) of phase 9."""
+def family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work,
+                   fps_runs) -> dict:
+    """(e)-(f) of phase 9 (the PointNet++ demo's FPS launches into
+    ``fps_runs``)."""
     from ampnet_tpu_torch.cli.main import NON_XLA, build_parser, make_server
     from ampnet_tpu_torch.core.checkpoint import load_model
     from ampnet_tpu_torch.infer.classify import CloudClassifier
@@ -2416,7 +2483,7 @@ def family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work) -
     # demo --arch pointnet2 at the verify recipe, on the card
     stdout, _, _, wall = family_cli("demo pointnet2", [
         "demo", "--out_path", os.path.join(work, "fam_demo"), "--arch", "pointnet2",
-        *DEMO_ARGS, "--device", str(dev)])
+        *DEMO_ARGS, "--device", str(dev)], fps_runs=fps_runs)
     summary = last_json(stdout)
     if not np.isfinite(summary["miou"]):
         raise RuntimeError(f"demo --arch pointnet2: {summary}")
@@ -4042,6 +4109,51 @@ def sinkhorn_phase(dev) -> list:
     return rows
 
 
+def fps_phase(dev) -> list:
+    """Phase 3e: ``batched_farthest_point_sampling`` on its kernel
+    (``csrc/fps.cu``) at the whole-cloud PointNet++ step's levels, xyz
+    uniform in the unit cube as ``pn2_fp32.train_b32`` draws it: the kernel
+    must pick the plain loop's indices on the same card, as integers, with
+    one launch a call. Timed on both clocks beside the plain loop
+    (``kernel_timing.py``)."""
+    from kernel_timing import FPS_LEVELS, device_ms, host_ms
+
+    from ampnet_tpu_torch.ops.sampling import (
+        batched_farthest_point_sampling,
+        batched_farthest_point_sampling_plain,
+    )
+
+    rows = []
+    for b, n, s in FPS_LEVELS:
+        gen = torch.Generator(device=dev).manual_seed(SEED + n)
+        same, masked = True, None
+        with torch.inference_mode():
+            for _ in range(2):  # two draws
+                xyz = torch.rand((b, n, 3), generator=gen, device=dev)
+                before = batched_farthest_point_sampling.launches
+                got = batched_farthest_point_sampling(xyz, s)
+                launched = batched_farthest_point_sampling.launches - before
+                same &= torch.equal(got, batched_farthest_point_sampling_plain(xyz, s))
+            if n == FPS_LEVELS[0][1]:  # a tenth of the points masked out
+                mask = torch.rand((b, n), generator=gen, device=dev) >= 0.1
+                masked = torch.equal(batched_farthest_point_sampling(xyz, s, mask),
+                                     batched_farthest_point_sampling_plain(xyz, s, mask))
+            call = lambda: batched_farthest_point_sampling(xyz, s)
+            plain = lambda: batched_farthest_point_sampling_plain(xyz, s)
+            row = {"name": f"batched_farthest_point_sampling:{n}", "shape": [b, n, 3],
+                   "samples": s, "route": "cuda", "source": "ampnet_tpu_torch/csrc/fps.cu",
+                   "replaces": None, "indices_equal": same, "masked_indices_equal": masked,
+                   "launches_a_call": launched,
+                   "ms": host_ms(call, 10), "device_ms": device_ms(call, 10),
+                   "plain_ms": host_ms(plain, 2), "plain_device_ms": device_ms(plain, 2)}
+        _say(f"  fps {n}: " + json.dumps(row))
+        if not same or masked is False or launched != 1:
+            raise RuntimeError(f"fps at [{b}, {n}] -> {s}: not the plain loop's indices or not "
+                               f"one launch: " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, and the host
     solver by ``g++``, all started together, and loaded."""
@@ -4088,6 +4200,7 @@ def main() -> int:
     int8_total, int8_cases = quantized_phase(model, dev)
     edge_phase(dev)
     sinkhorn_cases = sinkhorn_phase(dev)
+    fps_cases = fps_phase(dev)
 
     _say("[4/15] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
@@ -4111,7 +4224,7 @@ def main() -> int:
         eval_launches.update(tile_launches)
 
         _say("[9/15] families: gru, classification, baseline, classic, pointnet2")
-        families_phase(ckpt, dev, card, work)
+        families = families_phase(ckpt, dev, card, work)
 
         _say("[10/15] geometry: eigenfeature columns, edge block, geom tokens, distillation")
         geom_launches, geom_rows = geometry_phase(os.path.join(work, "tiles"), tiles_data,
@@ -4208,9 +4321,20 @@ def main() -> int:
                       "route": "cuda", "source": "ampnet_tpu_torch/csrc/sinkhorn.cu",
                       "replaces": None, "launches_by_run": sinkhorn_runs,
                       "launches": sum(sinkhorn_runs.values()), "cases": sinkhorn_cases}
+    # batched_farthest_point_sampling: one launch a call, three a PointNet++
+    # forward; counted in phase 8's windows and phase 9's PointNet++ runs,
+    # held against the plain loop in phase 3
+    fps_runs = {"tiles_window_fps": tiles_data["host_solver"]["fps_launches"],
+                **{f"families_{run.replace(' ', '_')}": counts["launches"]
+                   for run, counts in families["fps_launches"].items()}}
+    fps_total = {"name": "batched_farthest_point_sampling",
+                 "case": "one launch a call, one call a set abstraction", "route": "cuda",
+                 "source": "ampnet_tpu_torch/csrc/fps.cu", "replaces": None,
+                 "launches_by_run": fps_runs, "launches": sum(fps_runs.values()),
+                 "cases": fps_cases}
     _say(json.dumps({"kernels": [{**fused_total, "cases": fused_cases},
                                  {**int8_total, "cases": int8_cases}, stamp_total,
-                                 sinkhorn_total]}))
+                                 sinkhorn_total, fps_total]}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -8,6 +8,8 @@ Run from the root of a checkout, on a machine with the card::
     python3 kernel_timing.py --variants          # ... and variants of their sources
     python3 kernel_timing.py --kernels int8 --passes  # ... and each launch of one int8 call
     python3 kernel_timing.py --kernels sinkhorn  # the k-means at 1 and 4 served clouds
+    python3 kernel_timing.py --kernels fps       # farthest-point sampling at PointNet++'s levels
+    python3 kernel_timing.py --kernels fps --variants  # ... and its one-layout variants
 
 Two clocks, both CUDA events:
 
@@ -45,6 +47,18 @@ and 4), beside the plain loop (device clock only) and the bound of the
 log-domain loop's 2·N·k exps a Sinkhorn iteration, 300 iterations, at the
 card's special-function rate; it raises unless both give the same
 assignment and centroids bit for bit.
+
+``--kernels fps`` times ``batched_farthest_point_sampling`` on its kernel
+(``csrc/fps.cu``, one launch a call) at the three levels of the whole-cloud
+PointNet++ step, 32 clouds of 16,384 points to 1,024 samples, of 1,024 to
+256 and of 256 to 64, xyz uniform in the unit cube, beside the plain loop
+(both clocks), the time a dependent step takes, and the bound of its
+arithmetic (8 float32 operations a point and step at the card's float32
+rate; the kernel is bound by the steps' latency, not by it); it raises
+unless both pick the same indices. With ``--variants`` it also times, at the
+same levels, builds of ``csrc/fps.cu`` that keep the running minima of every
+size in the scratch layout (``FPS_VARIANTS``), against the kernel's
+registers.
 
 Prints one JSON line per chain (or clouds) and, last, the card's ``nvidia-smi`` name
 and power limit. Weights are seeded random (variance 1/fan_in; the int8
@@ -241,8 +255,30 @@ QUANTIZED_VARIANTS = {
     "fdiv_rn": [(_S8_DIVIDE, "  return __fdiv_rn(v, s_x);")],
 }
 
+_FPS_SCRATCH = ("  if (per > kMaxRegPoints) return 0;", "  if (per > 0) return 0;")
+# (old text, new text) replacements of csrc/fps.cu: the one layout of every
+# size in place of the register layout up to 16,384 points
+FPS_VARIANTS = {
+    # running minima in the [B, N] scratch, coordinates from global memory
+    "scratch": [_FPS_SCRATCH],
+    # ... coordinates in shared memory (clouds of at most 16,384 points only)
+    "scratch_smem_xyz": [
+        _FPS_SCRATCH,
+        ("      minima[i] = ok ? INFINITY : -INFINITY;\n",
+         "      minima[i] = ok ? INFINITY : -INFINITY;\n"
+         "      xs[i] = g[3 * i];\n      ys[i] = g[3 * i + 1];\n      zs[i] = g[3 * i + 2];\n"),
+        ("sqdist(__ldg(g + 3 * i), __ldg(g + 3 * i + 1),\n"
+         "                                                  __ldg(g + 3 * i + 2), lx, ly, lz)",
+         "sqdist(xs[i], ys[i], zs[i], lx, ly, lz)"),
+        ("(const void*)fps_kernel<16>};", "(const void*)fps_kernel<16>, (const void*)fps_kernel<0>};"),
+        ("fps_kernel<0><<<batch, threads, 0, st>>>",
+         "fps_kernel<0><<<batch, threads, 3 * sizeof(float) * (size_t)n, st>>>"),
+    ],
+}
+
 # kernel source -> its variants
-SOURCE_VARIANTS = {"fused_mlp": VARIANTS, "quantized_mlp": QUANTIZED_VARIANTS}
+SOURCE_VARIANTS = {"fused_mlp": VARIANTS, "quantized_mlp": QUANTIZED_VARIANTS,
+                   "fps": FPS_VARIANTS}
 
 
 def variant_source(name: str, source: str, kernel: str = "fused_mlp") -> str:
@@ -323,6 +359,42 @@ def time_variants(kernels) -> None:
                               "device_ms": time_in_turns(
                                   run, ["kernel", *QUANTIZED_VARIANTS, "kernel"]),
                               "elements_differ": differ}), flush=True)
+    if "fps" in kernels:
+        from ampnet_tpu_torch.ops.sampling import _fps_lib, batched_farthest_point_sampling_plain
+
+        _fps_lib()  # declares the package's build
+        libs = build_variants("fps")
+        gen = torch.Generator(device="cuda").manual_seed(37)
+        for b, n, s in FPS_LEVELS:
+            xyz = torch.rand((b, n, 3), generator=gen, device="cuda")
+            run = lambda v: fps_launch(libs[v], xyz, s)
+            with torch.inference_mode():
+                plain = batched_farthest_point_sampling_plain(xyz, s)
+                equal = {v: torch.equal(run(v), plain) for v in libs}
+                ms = time_in_turns(run, ["kernel", *FPS_VARIANTS, "kernel"])
+            if not all(equal.values()):
+                raise RuntimeError(f"fps variants at [{b}, {n}] -> {s}: indices differ from "
+                                   f"the plain loop's: {equal}")
+            print(json.dumps({"variants": "fps", "shape": [b, n, 3], "samples": s,
+                              "device_ms": ms, "indices_equal": equal}), flush=True)
+
+
+def fps_launch(lib, xyz, s):
+    """``csrc/fps.cu``'s launch from the build ``lib`` on contiguous float32
+    ``xyz`` [B, N, 3], no mask → [B, s] int64."""
+    b, n = xyz.shape[:2]
+    if lib.fps_sample.argtypes is None:
+        lib.fps_scratch_points.restype = ctypes.c_int
+        lib.fps_scratch_points.argtypes = [ctypes.c_int]
+        lib.fps_sample.restype = ctypes.c_int
+        lib.fps_sample.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    selected = torch.empty((b, s), dtype=torch.int64, device=xyz.device)
+    minima = torch.empty((b, lib.fps_scratch_points(n)), dtype=torch.float32, device=xyz.device)
+    err = lib.fps_sample(xyz.data_ptr(), None, minima.data_ptr() if minima.numel() else None,
+                         selected.data_ptr(), b, n, s, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"fps launch failed: CUDA error {err}")
+    return selected
 
 
 def time_passes() -> None:
@@ -399,9 +471,39 @@ def time_sinkhorn(batches=(1, 4)) -> None:
         print(json.dumps(row), flush=True)
 
 
+# float32 operations a second outside the tensor cores: the H100 SXM's 67 TFLOP/s
+FP32_PEAK_FLOPS = 67e12
+FPS_LEVELS = ((32, 16384, 1024), (32, 1024, 256), (32, 256, 64))  # B, N, samples
+
+
+def time_fps() -> None:
+    """``batched_farthest_point_sampling`` on the kernel against the plain
+    loop at the whole-cloud PointNet++ step's levels."""
+    from ampnet_tpu_torch.ops.sampling import (
+        batched_farthest_point_sampling,
+        batched_farthest_point_sampling_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for b, n, s in FPS_LEVELS:
+        xyz = torch.rand((b, n, 3), generator=gen, device="cuda")
+        call = lambda: batched_farthest_point_sampling(xyz, s)
+        plain = lambda: batched_farthest_point_sampling_plain(xyz, s)
+        with torch.inference_mode():
+            if not torch.equal(call(), plain()):
+                raise RuntimeError(f"fps at [{b}, {n}] -> {s}: not the plain loop's indices")
+            row = {"kernel": "batched_farthest_point_sampling", "shape": [b, n, 3],
+                   "samples": s, "host_ms": host_ms(call, 20), "device_ms": device_ms(call, 20),
+                   "plain_host_ms": host_ms(plain, 2), "plain_device_ms": device_ms(plain, 2)}
+        row["us_per_step"] = row["device_ms"] / max(s - 1, 1) * 1e3
+        row["flops_bound_ms"] = 8 * b * n * (s - 1) / FP32_PEAK_FLOPS * 1e3
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--kernels", choices=("all", "fused", "int8", "sinkhorn"), default="all",
+    parser.add_argument("--kernels", choices=("all", "fused", "int8", "sinkhorn", "fps"),
+                        default="all",
                         help="which kernels to time (default: the two chains)")
     parser.add_argument("--variants", action="store_true",
                         help="also time variants of the kernels' sources at the served chains")
@@ -419,6 +521,8 @@ def main() -> int:
         time_quantized()
     if "sinkhorn" in kernels:
         time_sinkhorn()
+    if "fps" in kernels:
+        time_fps()
     if args.variants:
         time_variants(kernels)
     if args.passes:
