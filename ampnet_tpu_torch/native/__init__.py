@@ -24,32 +24,23 @@ from typing import Tuple
 import numpy as np
 
 
+_f32p, _i32p, _i32 = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32), ctypes.c_int32
+_FPS_ARGS = [_f32p, _i32, _i32, _i32, _i32p]
+SIGNATURES = {
+    "ampnet_balanced_assign": (ctypes.c_int, [_f32p, _i32, _i32, _i32p, _i32p]),
+    "ampnet_balanced_kmeans": (ctypes.c_int, [_f32p, _i32, _i32, _i32, _i32p, _i32,
+                                              ctypes.c_uint64, _i32p, _f32p]),
+    "ampnet_fps": (None, _FPS_ARGS),
+    "ampnet_fps_grid": (None, _FPS_ARGS),
+}
+
+
 def load_native() -> ctypes.CDLL:
-    """The built solver library, its C signatures set (built on first call;
-    raises with the build's message when it cannot be built)."""
+    """The built solver library, its C signatures declared (built on first
+    call; raises with the build's message when it cannot be built)."""
     from ampnet_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("balanced_assign")
-    lib.ampnet_balanced_assign.restype = ctypes.c_int
-    lib.ampnet_balanced_assign.argtypes = [
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.ampnet_balanced_kmeans.restype = ctypes.c_int
-    lib.ampnet_balanced_kmeans.argtypes = [
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32, ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
-        ctypes.c_uint64, ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_float),
-    ]
-    lib.ampnet_fps.restype = None
-    lib.ampnet_fps.argtypes = [
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.ampnet_fps_grid.restype = None
-    lib.ampnet_fps_grid.argtypes = lib.ampnet_fps.argtypes
-    return lib
+    return cuda_build.load("balanced_assign", SIGNATURES)
 
 
 def native_available() -> bool:

@@ -11,6 +11,14 @@ a build directory copied to another machine is rebuilt there. The build
 writes a temporary file and renames it into place, so processes that build
 at the same time (``preprocess --workers``) never load half a file. It needs
 only the checkout and the toolchain; nothing is downloaded.
+
+Every library is declared and launched here. A module that owns a source
+passes ``load`` its C signatures as data, ``{function: (restype,
+argtypes)}``, declared once per process; ``declare`` does the same for
+another build of that source (``kernel_timing.py --variants``). ``launch``
+calls a kernel's C entry point under its device's guard with the current
+stream appended, turns a nonzero return into an error that names the kernel,
+and counts the launches on the wrapper (``ops/launch_count.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +30,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ampnet_tpu_torch.ops.launch_count import count_launch
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -33,9 +45,12 @@ FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # order and break the solver's ties otherwise
 HOST_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared"]
 
+# {C function: (restype, argtypes)}
+Signatures = Dict[str, Tuple[Optional[type], Sequence[type]]]
+
 _lock = threading.Lock()  # guards the two maps below
 _name_locks: Dict[str, threading.Lock] = {}
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}  # built, loaded and declared
 
 
 def nvcc_path() -> str:
@@ -94,17 +109,42 @@ def build_host(src: Path) -> Path:
     return _compile(src, [gxx], HOST_FLAGS, salt=_host_target(gxx))
 
 
-def load(name: str) -> ctypes.CDLL:
+def declare(lib: ctypes.CDLL, signatures: Signatures) -> ctypes.CDLL:
+    """``lib`` with each C function of ``signatures`` declared."""
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
+def load(name: str, signatures: Signatures) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (by ``nvcc``) or
-    ``csrc/<name>.cc`` (by ``g++``), built on first call. Two sources build
-    at the same time; one source builds once per process."""
+    ``csrc/<name>.cc`` (by ``g++``) with ``signatures`` declared, built and
+    declared on the first call. Two sources build at the same time; one
+    source builds once per process."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name not in _libs:
             host = CSRC / f"{name}.cc"
             path = build_host(host) if host.exists() else build(CSRC / f"{name}.cu")
-            lib = ctypes.CDLL(str(path))
+            lib = declare(ctypes.CDLL(str(path)), signatures)
             with _lock:
                 _libs[name] = lib
         return _libs[name]
+
+
+def launch(wrapper, fn, device: torch.device, *args, launches: int = 1) -> None:
+    """``fn(*args, stream)``, a kernel's C entry point, on ``device``'s
+    current stream under its guard. A nonzero return (a CUDA error) raises
+    naming the kernel; otherwise ``launches`` launches count on ``wrapper``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__}: the launch of {fn.__name__} failed: CUDA "
+                           f"error {err}")
+    for _ in range(launches):
+        count_launch(wrapper)

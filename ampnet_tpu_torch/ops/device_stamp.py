@@ -19,15 +19,8 @@ import time
 import torch
 
 from ampnet_tpu_torch.ops import cuda_build
-from ampnet_tpu_torch.ops.launch_count import count_launch
 
-
-def _declared(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` (a build of ``csrc/device_stamp.cu``) with its C signature declared."""
-    if lib.device_stamp.argtypes is None:
-        lib.device_stamp.restype = ctypes.c_int
-        lib.device_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    return lib
+SIGNATURES = {"device_stamp": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p])}
 
 
 def device_stamp(out: torch.Tensor, i: int) -> None:
@@ -39,13 +32,9 @@ def device_stamp(out: torch.Tensor, i: int) -> None:
     if out.device.type != "cuda":
         out[i] = time.perf_counter_ns()
         return
-    lib = _declared(cuda_build.load("device_stamp"))
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = lib.device_stamp(out.data_ptr() + i * out.element_size(), stream)
-    if err != 0:
-        raise RuntimeError(f"device_stamp kernel launch failed: CUDA error {err}")
-    count_launch(device_stamp)
+    lib = cuda_build.load("device_stamp", SIGNATURES)
+    cuda_build.launch(device_stamp, lib.device_stamp, out.device,
+                      out.data_ptr() + i * out.element_size())
 
 
 device_stamp.launches = 0

@@ -31,7 +31,6 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from ampnet_tpu_torch.ops import cuda_build
-from ampnet_tpu_torch.ops.launch_count import count_launch
 
 MAX_LAYERS = 4
 MAX_WIDTH = 256
@@ -194,21 +193,17 @@ def _check(x, weights, pool, return_acts):
         raise ValueError("x, weights and biases must share one device")
 
 
-def _declared(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` (a build of ``csrc/fused_mlp.cu``) with every C signature declared."""
-    if lib.fused_mlp_chain_f32.argtypes is None:  # declared last, below
-        lib.fused_mlp_chain_tile_rows.restype = ctypes.c_int
-        lib.fused_mlp_chain_tile_rows.argtypes = []
-        lib.fused_mlp_chain_f32.restype = ctypes.c_int
-        lib.fused_mlp_chain_f32.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
-            + [ctypes.c_int] + [ctypes.c_void_p] * 4)
-    return lib
+SIGNATURES = {
+    "fused_mlp_chain_tile_rows": (ctypes.c_int, []),
+    "fused_mlp_chain_f32": (ctypes.c_int, [ctypes.c_void_p] + [ctypes.c_int] * 4
+                            + [ctypes.POINTER(ctypes.c_void_p)] * 2
+                            + [ctypes.POINTER(ctypes.c_int)] * 3
+                            + [ctypes.c_int] + [ctypes.c_void_p] * 4),
+}
 
 
 def _launch(x, chain: PreparedChain, pool, relu_last, return_acts, lib):
-    lib = _declared(lib or cuda_build.load("fused_mlp"))
+    lib = lib or cuda_build.load("fused_mlp", SIGNATURES)
     m, n, _ = x.shape
     cout = chain.weights[-1].shape[1]
     x = x.contiguous()
@@ -221,14 +216,9 @@ def _launch(x, chain: PreparedChain, pool, relu_last, return_acts, lib):
     if m == 0:
         return acts, pooled
     ptr = lambda t: t.data_ptr() if t is not None else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_mlp_chain_f32(
-            x.data_ptr(), m, n, x.shape[2], len(chain.packed), *chain.c_args,
-            int(relu_last), ptr(acts), ptr(pooled), ptr(partial), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_chain kernel launch failed: CUDA error {err}")
-    count_launch(fused_mlp_chain)
+    cuda_build.launch(fused_mlp_chain, lib.fused_mlp_chain_f32, x.device,
+                      x.data_ptr(), m, n, x.shape[2], len(chain.packed), *chain.c_args,
+                      int(relu_last), ptr(acts), ptr(pooled), ptr(partial))
     return acts, pooled
 
 
@@ -246,8 +236,10 @@ def fused_mlp_chain(
     the pooled vector. ``weights`` is a ``prepare_chain`` result (``biases``
     then None) or plain weights, which a CUDA call prepares itself. fp32 only;
     up to 4 layers, widths up to 256. ``library``: another build of
-    ``csrc/fused_mlp.cu``'s C interface to launch in place of the package's
-    own (``kernel_timing.py --variants`` times variants of the source)."""
+    ``csrc/fused_mlp.cu``'s C interface, declared by
+    ``cuda_build.declare(lib, SIGNATURES)``, to launch in place of the
+    package's own (``kernel_timing.py --variants`` times variants of the
+    source)."""
     chain = None
     if isinstance(weights, PreparedChain):
         if biases is not None:

@@ -29,14 +29,12 @@ Differences from the JAX module, both deliberate:
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ampnet_tpu_torch.ops import cuda_build
-from ampnet_tpu_torch.ops.launch_count import count_launch
 
 MAX_CLUSTERS = 32  # the kernels' k
 
@@ -93,31 +91,12 @@ def _kernels_take(logK: torch.Tensor, log_c: torch.Tensor, iters: int) -> bool:
             and iters >= 1)
 
 
-_lib_lock = threading.Lock()
-
-
-def _sinkhorn_lib() -> ctypes.CDLL:
-    """The built ``csrc/sinkhorn.cu``, declared once."""
-    lib = cuda_build.load("sinkhorn")
-    with _lib_lock:
-        if lib.sinkhorn_rows.argtypes is None:
-            lib.sinkhorn_blocks.restype = ctypes.c_int
-            lib.sinkhorn_blocks.argtypes = [ctypes.c_int]
-            lib.sinkhorn_columns.restype = ctypes.c_int
-            lib.sinkhorn_columns.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
-            lib.sinkhorn_rows.restype = ctypes.c_int
-            lib.sinkhorn_rows.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
-    return lib
-
-
-def _launched(err: int, half: str, kernels: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"sinkhorn_iterations: the {half} kernels' launch failed: CUDA "
-                           f"error {err}")
-    for _ in range(kernels):
-        count_launch(sinkhorn_iterations)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "sinkhorn_blocks": (_I, [_I]),
+    "sinkhorn_columns": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "sinkhorn_rows": (_I, [_P] * 6 + [_I] * 3 + [_P]),
+}
 
 
 def sinkhorn_iterations(
@@ -150,7 +129,7 @@ def sinkhorn_iterations(
     if not _on_card(logK) or log_c.device != logK.device:
         raise ValueError(f"sinkhorn_iterations runs on a CUDA device, both tensors on it "
                          f"(logK on {logK.device}, log_c on {log_c.device})")
-    lib = _sinkhorn_lib()
+    lib = cuda_build.load("sinkhorn", SIGNATURES)
     dev = logK.device
     exps = torch.empty_like(logK)
     partial = torch.empty((b, lib.sinkhorn_blocks(n), k), dtype=torch.float32, device=dev)
@@ -158,16 +137,15 @@ def sinkhorn_iterations(
     colmax = torch.empty((*lead, k), dtype=torch.float32, device=dev)
     v = torch.empty((*lead, k), dtype=torch.float32, device=dev)
     u = torch.empty((*lead, n), dtype=torch.float32, device=dev)  # not read by the first iteration
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for i in range(iters):
-            _launched(lib.sinkhorn_columns(logK.data_ptr(), u.data_ptr(), partial.data_ptr(),
-                                           done.data_ptr(), exps.data_ptr(), colmax.data_ptr(),
-                                           b, n, k, int(i == 0), stream), "columns", 2)
-            colsum = exps.sum(dim=-2)
-            _launched(lib.sinkhorn_rows(logK.data_ptr(), colsum.data_ptr(), colmax.data_ptr(),
-                                        log_c.data_ptr(), v.data_ptr(), u.data_ptr(), b, n, k,
-                                        stream), "rows", 1)
+    for i in range(iters):
+        # the column maxima and the column exps: two kernels
+        cuda_build.launch(sinkhorn_iterations, lib.sinkhorn_columns, dev,
+                          logK.data_ptr(), u.data_ptr(), partial.data_ptr(), done.data_ptr(),
+                          exps.data_ptr(), colmax.data_ptr(), b, n, k, int(i == 0), launches=2)
+        colsum = exps.sum(dim=-2)
+        cuda_build.launch(sinkhorn_iterations, lib.sinkhorn_rows, dev,
+                          logK.data_ptr(), colsum.data_ptr(), colmax.data_ptr(), log_c.data_ptr(),
+                          v.data_ptr(), u.data_ptr(), b, n, k)
     return u, v
 
 

@@ -1,8 +1,10 @@
 """Launch counters of the hand-written kernels.
 
-Each kernel wrapper (``fused_mlp_chain``, ``quantized_mlp_chain``) keeps a
-``launches`` attribute and calls ``count_launch`` where it launches its
-kernel, so a run can show that its main path went through the kernel.
+Each kernel wrapper (``fused_mlp_chain``, ``quantized_mlp_chain``,
+``sinkhorn_iterations``, ``batched_farthest_point_sampling``,
+``device_stamp``) keeps a ``launches`` attribute, which ``cuda_build.launch``
+counts on at each launch of its kernel, so a run can show that its main path
+went through the kernel.
 
 A launch made while this thread captures a CUDA graph goes into the graph,
 not to the device. Inside ``recording()`` it is recorded instead of counted,

@@ -47,7 +47,6 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from ampnet_tpu_torch.ops import cuda_build
-from ampnet_tpu_torch.ops.launch_count import count_launch
 
 MAX_LAYERS = 4
 MAX_WIDTH = 256
@@ -248,24 +247,21 @@ def _check(x, wq, pool, return_acts, block_windows):
         raise TypeError(f"quantized_mlp_chain takes float32 x, scales and biases, got {x.dtype}")
 
 
-def _declared(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` (a build of ``csrc/quantized_mlp.cu``) with every C signature declared."""
-    if lib.quantized_mlp_chain_s8.argtypes is None:  # declared last, below
-        lib.quantized_mlp_chain_tile_rows.restype = ctypes.c_int
-        lib.quantized_mlp_chain_tile_rows.argtypes = []
-        lib.quantized_mlp_chain_s8.restype = ctypes.c_int
-        lib.quantized_mlp_chain_s8.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 6
-            + [ctypes.POINTER(ctypes.c_void_p)] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
-            + [ctypes.c_int] + [ctypes.c_void_p] * 5)
-    return lib
+SIGNATURES = {
+    "quantized_mlp_chain_tile_rows": (ctypes.c_int, []),
+    "quantized_mlp_chain_s8": (ctypes.c_int, [ctypes.c_void_p] + [ctypes.c_int] * 6
+                               + [ctypes.POINTER(ctypes.c_void_p)] * 3
+                               + [ctypes.POINTER(ctypes.c_int)] * 3
+                               + [ctypes.c_int] + [ctypes.c_void_p] * 5),
+}
 
 
 def _launch(x, chain: PreparedQuantizedChain, pool, relu_last, return_acts, g, lib=None):
     """One launch of the kernel (``lib``: another build of
-    ``csrc/quantized_mlp.cu``'s C interface in place of the package's own,
+    ``csrc/quantized_mlp.cu``'s C interface, declared by
+    ``cuda_build.declare(lib, SIGNATURES)``, in place of the package's own,
     as ``kernel_timing.py --variants`` times them) → (acts, pooled)."""
-    lib = _declared(lib or cuda_build.load("quantized_mlp"))
+    lib = lib or cuda_build.load("quantized_mlp", SIGNATURES)
     m, n, cin = x.shape
     mp = m + (-m % g)  # the zero windows past m count toward their block's scale
     x = x.contiguous()
@@ -283,14 +279,9 @@ def _launch(x, chain: PreparedQuantizedChain, pool, relu_last, return_acts, g, l
     scratch = torch.empty(layers * (mp // g) + (m * (cout + 1) if pool else 0),
                           dtype=torch.int32, device=x.device)
     ptr = lambda t: t.data_ptr() if t is not None else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.quantized_mlp_chain_s8(
-            x.data_ptr(), m, mp, n, cin, g, layers, *chain.c_args, int(relu_last),
-            ptr(acts), ptr(pooled), ptr(xq), scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"quantized_mlp_chain kernel launch failed: CUDA error {err}")
-    count_launch(quantized_mlp_chain)
+    cuda_build.launch(quantized_mlp_chain, lib.quantized_mlp_chain_s8, x.device,
+                      x.data_ptr(), m, mp, n, cin, g, layers, *chain.c_args, int(relu_last),
+                      ptr(acts), ptr(pooled), ptr(xq), scratch.data_ptr())
     return acts, pooled
 
 

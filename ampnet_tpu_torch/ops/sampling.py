@@ -29,13 +29,11 @@ counts the kernel's launches (one a call; a CUDA graph's replays included,
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 
 from ampnet_tpu_torch.ops import cuda_build
-from ampnet_tpu_torch.ops.launch_count import count_launch
 
 
 def resample_to_fixed_size(
@@ -134,20 +132,10 @@ def batched_farthest_point_sampling_plain(
     return selected
 
 
-_lib_lock = threading.Lock()
-
-
-def _fps_lib() -> ctypes.CDLL:
-    """The built ``csrc/fps.cu``, declared once."""
-    lib = cuda_build.load("fps")
-    with _lib_lock:
-        if lib.fps_sample.argtypes is None:
-            lib.fps_scratch_points.restype = ctypes.c_int
-            lib.fps_scratch_points.argtypes = [ctypes.c_int]
-            lib.fps_sample.restype = ctypes.c_int
-            lib.fps_sample.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
-    return lib
+SIGNATURES = {
+    "fps_scratch_points": (ctypes.c_int, [ctypes.c_int]),
+    "fps_sample": (ctypes.c_int, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+}
 
 
 def batched_farthest_point_sampling_kernel(
@@ -183,10 +171,9 @@ def batched_farthest_point_sampling_kernel(
                          f"every tensor on it (xyz on {xyz.device}, valid_mask on "
                          f"{None if valid_mask is None else valid_mask.device})")
     selected = torch.empty((b, n_samples), dtype=torch.int64, device=xyz.device)
-    minima = torch.empty((b, _fps_lib().fps_scratch_points(n)), dtype=torch.float32,
-                         device=xyz.device)
+    scratch = cuda_build.load("fps", SIGNATURES).fps_scratch_points(n)
+    minima = torch.empty((b, scratch), dtype=torch.float32, device=xyz.device)
     _fps_sample(xyz, valid_mask, minima, selected)
-    count_launch(batched_farthest_point_sampling)
     return selected
 
 
@@ -194,18 +181,15 @@ def batched_farthest_point_sampling_kernel(
 def _fps_sample(xyz: torch.Tensor, valid_mask: Optional[torch.Tensor], minima: torch.Tensor,
                 selected: torch.Tensor) -> None:
     """One launch of ``csrc/fps.cu`` into ``selected`` (``minima`` its
-    scratch), as an operator of torch's dispatcher: a profiler links the
-    kernel to the op, and so to the ranges around the call; a bare ctypes
-    launch is linked to no op."""
+    scratch), counted on ``batched_farthest_point_sampling``, as an operator
+    of torch's dispatcher: a profiler links the kernel to the op, and so to
+    the ranges around the call; a bare ctypes launch is linked to no op."""
     b, n = xyz.shape[:2]
-    with torch.cuda.device(xyz.device):
-        err = _fps_lib().fps_sample(
-            xyz.data_ptr(), None if valid_mask is None else valid_mask.data_ptr(),
-            minima.data_ptr() if minima.numel() else None, selected.data_ptr(), b, n,
-            selected.shape[1], torch.cuda.current_stream(xyz.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"batched_farthest_point_sampling_kernel: the launch failed: CUDA "
-                           f"error {err}")
+    lib = cuda_build.load("fps", SIGNATURES)
+    cuda_build.launch(batched_farthest_point_sampling, lib.fps_sample, xyz.device,
+                      xyz.data_ptr(), None if valid_mask is None else valid_mask.data_ptr(),
+                      minima.data_ptr() if minima.numel() else None, selected.data_ptr(), b, n,
+                      selected.shape[1])
 
 
 def fps_points(points: torch.Tensor, n_samples: int) -> torch.Tensor:

@@ -242,9 +242,11 @@ import numpy as np
 import torch
 
 SEED = 0
-KERNEL_SOURCES = ("fused_mlp", "quantized_mlp", "device_stamp", "sinkhorn",
-                  "fps")  # csrc/<name>.cu
-HOST_SOURCES = ("balanced_assign",)  # ampnet_tpu_torch/csrc/<name>.cc, built by g++
+# ampnet_tpu_torch/csrc/<name>.cu (nvcc) or .cc (g++, the host solver) -> the
+# package module that declares its C signatures
+SOURCES = {"fused_mlp": "ops.fused_mlp", "quantized_mlp": "ops.quantized_mlp",
+           "device_stamp": "ops.device_stamp", "sinkhorn": "ops.kmeans", "fps": "ops.sampling",
+           "balanced_assign": "native"}
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 and
 # int8 on the tensor cores, and HBM3
 FP32_PEAK_FLOPS = 67e12
@@ -4157,14 +4159,19 @@ def fps_phase(dev) -> list:
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, and the host
     solver by ``g++``, all started together, and loaded."""
+    import importlib
+
     from ampnet_tpu_torch.ops import cuda_build
+
+    tables = {name: importlib.import_module(f"ampnet_tpu_torch.{owner}").SIGNATURES
+              for name, owner in SOURCES.items()}
 
     def build(name):
         t0 = time.perf_counter()
-        cuda_build.load(name)
+        cuda_build.load(name, tables[name])
         return time.perf_counter() - t0
 
-    sources = (*KERNEL_SOURCES, *HOST_SOURCES)
+    sources = tuple(SOURCES)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         took = dict(zip(sources, pool.map(build, sources)))

@@ -290,9 +290,10 @@ def variant_source(name: str, source: str, kernel: str = "fused_mlp") -> str:
     return source
 
 
-def build_variants(kernel: str) -> dict:
+def build_variants(kernel: str, signatures: dict) -> dict:
     """{"kernel": the package's build, variant: its build} of csrc/<kernel>.cu,
-    one nvcc each, all started together."""
+    one nvcc each, all started together, each with the C ``signatures`` of
+    the module that launches it declared."""
     from ampnet_tpu_torch.ops import cuda_build
 
     source = (cuda_build.CSRC / f"{kernel}.cu").read_text()
@@ -303,10 +304,10 @@ def build_variants(kernel: str) -> dict:
     def build(name):
         path = out / f"{kernel}_{name}.cu"
         path.write_text(variant_source(name, source, kernel))
-        return ctypes.CDLL(str(cuda_build.build(path)))
+        return cuda_build.declare(ctypes.CDLL(str(cuda_build.build(path))), signatures)
 
     with ThreadPoolExecutor(len(variants) + 1) as pool:
-        own = pool.submit(cuda_build.load, kernel)
+        own = pool.submit(cuda_build.load, kernel, signatures)
         libs = dict(zip(variants, pool.map(build, variants)))
         return {"kernel": own.result(), **libs}
 
@@ -327,7 +328,7 @@ def time_variants(kernels) -> None:
     if "fused" in kernels:
         from ampnet_tpu_torch.ops import fused_mlp as fm
 
-        libs = build_variants("fused_mlp")
+        libs = build_variants("fused_mlp", fm.SIGNATURES)
         gen = torch.Generator(device="cuda").manual_seed(1)
         for name, (dims, pool_) in CHAINS.items():
             x, ws, bs = chain_inputs(dims, m, n, gen)
@@ -343,7 +344,7 @@ def time_variants(kernels) -> None:
     if "int8" in kernels:
         from ampnet_tpu_torch.ops import quantized_mlp as qm
 
-        libs = build_variants("quantized_mlp")
+        libs = build_variants("quantized_mlp", qm.SIGNATURES)
         gen = torch.Generator(device="cuda").manual_seed(3)
         for name, (dims, pool_) in QUANTIZED_CHAINS.items():
             x, ws, bs = chain_inputs(dims, m, n, gen)
@@ -360,16 +361,15 @@ def time_variants(kernels) -> None:
                                   run, ["kernel", *QUANTIZED_VARIANTS, "kernel"]),
                               "elements_differ": differ}), flush=True)
     if "fps" in kernels:
-        from ampnet_tpu_torch.ops.sampling import _fps_lib, batched_farthest_point_sampling_plain
+        from ampnet_tpu_torch.ops import sampling
 
-        _fps_lib()  # declares the package's build
-        libs = build_variants("fps")
+        libs = build_variants("fps", sampling.SIGNATURES)
         gen = torch.Generator(device="cuda").manual_seed(37)
         for b, n, s in FPS_LEVELS:
             xyz = torch.rand((b, n, 3), generator=gen, device="cuda")
             run = lambda v: fps_launch(libs[v], xyz, s)
             with torch.inference_mode():
-                plain = batched_farthest_point_sampling_plain(xyz, s)
+                plain = sampling.batched_farthest_point_sampling_plain(xyz, s)
                 equal = {v: torch.equal(run(v), plain) for v in libs}
                 ms = time_in_turns(run, ["kernel", *FPS_VARIANTS, "kernel"])
             if not all(equal.values()):
@@ -380,20 +380,16 @@ def time_variants(kernels) -> None:
 
 
 def fps_launch(lib, xyz, s):
-    """``csrc/fps.cu``'s launch from the build ``lib`` on contiguous float32
-    ``xyz`` [B, N, 3], no mask → [B, s] int64."""
+    """``csrc/fps.cu``'s launch from the declared build ``lib`` on contiguous
+    float32 ``xyz`` [B, N, 3], no mask → [B, s] int64."""
+    from ampnet_tpu_torch.ops import cuda_build, sampling
+
     b, n = xyz.shape[:2]
-    if lib.fps_sample.argtypes is None:
-        lib.fps_scratch_points.restype = ctypes.c_int
-        lib.fps_scratch_points.argtypes = [ctypes.c_int]
-        lib.fps_sample.restype = ctypes.c_int
-        lib.fps_sample.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     selected = torch.empty((b, s), dtype=torch.int64, device=xyz.device)
     minima = torch.empty((b, lib.fps_scratch_points(n)), dtype=torch.float32, device=xyz.device)
-    err = lib.fps_sample(xyz.data_ptr(), None, minima.data_ptr() if minima.numel() else None,
-                         selected.data_ptr(), b, n, s, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"fps launch failed: CUDA error {err}")
+    cuda_build.launch(sampling.batched_farthest_point_sampling, lib.fps_sample, xyz.device,
+                      xyz.data_ptr(), None, minima.data_ptr() if minima.numel() else None,
+                      selected.data_ptr(), b, n, s)
     return selected
 
 

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from ampnet_tpu_torch.ops import sampling
+from ampnet_tpu_torch.ops import cuda_build, sampling
 from ampnet_tpu_torch.ops.launch_count import add_launches, recording
 from ampnet_tpu_torch.ops.sampling import (
     batched_farthest_point_sampling,
@@ -183,10 +183,10 @@ def test_the_kernel_wrapper_raises_on_what_the_kernel_does_not_take(case, monkey
         mask = torch.ones(40, 2, dtype=torch.bool).t()
     if case != "on_the_cpu":  # every other check comes before the device's
         monkeypatch.setattr(sampling, "_on_card", lambda t: True)
-    def reached_the_launch():  # the refusal must come first
+    def reached_the_launch(name, signatures):  # the refusal must come first
         raise AssertionError("reached the launch")
 
-    monkeypatch.setattr(sampling, "_fps_lib", reached_the_launch)
+    monkeypatch.setattr(cuda_build, "load", reached_the_launch)
     before = batched_farthest_point_sampling.launches
     with pytest.raises(REFUSALS[case]):
         batched_farthest_point_sampling_kernel(xyz, s, mask)

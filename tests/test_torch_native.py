@@ -191,3 +191,80 @@ def test_concurrent_builds_load_one_library(monkeypatch, tmp_path):
     import ctypes
 
     assert ctypes.CDLL(str(paths[0])).ampnet_fps is not None
+
+
+def test_threads_that_load_together_declare_the_library_once(monkeypatch):
+    """``cuda_build.load`` declares a library's signature table once: two
+    threads that load the solver at the same time get one library, declared
+    once, and a later load returns that library without declaring again."""
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    monkeypatch.setattr(cuda_build, "_name_locks", {})
+    declared = []
+    real_declare = cuda_build.declare
+
+    def counting_declare(lib, signatures):
+        declared.append(lib)
+        return real_declare(lib, signatures)
+
+    monkeypatch.setattr(cuda_build, "declare", counting_declare)
+    start = threading.Barrier(2)
+    libs = []
+
+    def load():
+        start.wait()
+        libs.append(cuda_build.load("balanced_assign", native.SIGNATURES))
+
+    threads = [threading.Thread(target=load) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(libs) == 2 and libs[0] is libs[1] and declared == [libs[0]]
+    for fn, (restype, argtypes) in native.SIGNATURES.items():
+        assert getattr(libs[0], fn).restype is restype
+        assert getattr(libs[0], fn).argtypes == list(argtypes)
+    assert cuda_build.load("balanced_assign", native.SIGNATURES) is libs[0]
+    assert native.load_native() is libs[0] and declared == [libs[0]]
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """``torch.cuda``'s device guard and current stream stood in for, so
+    ``cuda_build.launch`` runs here; the stream handle it appends is 1234."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=1234))
+
+
+@pytest.mark.parametrize("launches", [1, 2])
+def test_launch_appends_the_stream_and_counts_each_launch(no_card, launches):
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    calls = []
+
+    def sinkhorn_columns(*args):
+        calls.append(args)
+        return 0
+
+    cuda_build.launch(wrapper, sinkhorn_columns, "cuda:0", 7, None, launches=launches)
+    assert calls == [(7, None, 1234)] and wrapper.launches == launches
+
+
+def test_a_failed_launch_raises_naming_the_kernel_and_counts_nothing(no_card):
+    def sinkhorn_iterations():
+        pass
+
+    sinkhorn_iterations.launches = 0
+
+    def sinkhorn_rows(*args):
+        return 700  # cudaErrorIllegalAddress
+
+    with pytest.raises(RuntimeError, match="sinkhorn_iterations: the launch of sinkhorn_rows "
+                                           "failed: CUDA error 700"):
+        cuda_build.launch(sinkhorn_iterations, sinkhorn_rows, "cuda:0", 1, 2, launches=2)
+    assert sinkhorn_iterations.launches == 0
