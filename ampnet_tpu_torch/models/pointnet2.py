@@ -7,8 +7,11 @@ same points:
 
 * farthest point sampling is ``ops/sampling.py``'s, batched over clouds,
   starting at index 0, ties to the lowest index;
-* the ball query fills out-of-ball slots with the sentinel N, sorts, keeps the
-  first ``nsample`` and replaces sentinels by the group's first member;
+* the ball query keeps the first ``nsample`` in-ball indices in ascending
+  order and pads with the group's first member: ``ops/sampling.py``'s
+  ``ball_query_members`` on the squared distances, one launch of
+  ``csrc/ball_query.cu`` on a card, the plain sentinel-and-sort body
+  elsewhere;
 * the 3-NN of feature propagation take the three smallest squared
   distances, ties to the lower index (``lax.top_k``'s order), by three
   ``argmin`` passes.
@@ -42,7 +45,7 @@ from ampnet_tpu_torch.models.layers import (
     dropout,
     make_linear,
 )
-from ampnet_tpu_torch.ops.sampling import batched_farthest_point_sampling
+from ampnet_tpu_torch.ops.sampling import ball_query_members, batched_farthest_point_sampling
 
 
 def _sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -59,12 +62,7 @@ def ball_query(centers: torch.Tensor, xyz: torch.Tensor, radius: float,
     the lowest-index points within ``radius``, padded with the first of them
     (a center is one of the points, so the first always exists)."""
     with torch.no_grad():
-        n = xyz.shape[1]
-        d2 = _sqdist(centers, xyz)
-        idx = torch.arange(n, device=xyz.device).expand(d2.shape)
-        idx = torch.where(d2 <= radius * radius, idx, n)  # out of the ball → sentinel N
-        idx = torch.sort(idx, dim=-1).values[..., :nsample]
-        return torch.where(idx == n, idx[..., :1], idx)
+        return ball_query_members(_sqdist(centers, xyz), radius, nsample)
 
 
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,18 @@ first maximum (NaN counts as the maximum), so the kernel picks the plain
 loop's indices bit for bit. ``batched_farthest_point_sampling.launches``
 counts the kernel's launches (one a call; a CUDA graph's replays included,
 ``ops/launch_count.py``).
+
+``ball_query_members`` is PointNet++'s ball query on a squared-distance block
+``d2 [B, S, N]``: for each centre the first ``nsample`` in-ball indices in
+ascending order, padded with the first of them. It routes by device in the
+same way: a CUDA tensor runs one launch of ``csrc/ball_query.cu``
+(``ball_query_members_kernel``, a scan of each row that stops at its
+``nsample``-th member) or raises, any other tensor the plain body
+(``ball_query_members_plain``: the sentinel N outside the ball, a sort of each
+row, the first ``nsample`` kept). Both admit ``d2 <= radius * radius``, the
+threshold rounded once to float32 as torch compares a float32 tensor with a
+Python float, so they pick the same integers; ``ball_query_members.launches``
+counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -132,7 +144,7 @@ def batched_farthest_point_sampling_plain(
     return selected
 
 
-SIGNATURES = {
+FPS_SIGNATURES = {
     "fps_scratch_points": (ctypes.c_int, [ctypes.c_int]),
     "fps_sample": (ctypes.c_int, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
@@ -171,7 +183,7 @@ def batched_farthest_point_sampling_kernel(
                          f"every tensor on it (xyz on {xyz.device}, valid_mask on "
                          f"{None if valid_mask is None else valid_mask.device})")
     selected = torch.empty((b, n_samples), dtype=torch.int64, device=xyz.device)
-    scratch = cuda_build.load("fps", SIGNATURES).fps_scratch_points(n)
+    scratch = cuda_build.load("fps", FPS_SIGNATURES).fps_scratch_points(n)
     minima = torch.empty((b, scratch), dtype=torch.float32, device=xyz.device)
     _fps_sample(xyz, valid_mask, minima, selected)
     return selected
@@ -185,11 +197,79 @@ def _fps_sample(xyz: torch.Tensor, valid_mask: Optional[torch.Tensor], minima: t
     of torch's dispatcher: a profiler links the kernel to the op, and so to
     the ranges around the call; a bare ctypes launch is linked to no op."""
     b, n = xyz.shape[:2]
-    lib = cuda_build.load("fps", SIGNATURES)
+    lib = cuda_build.load("fps", FPS_SIGNATURES)
     cuda_build.launch(batched_farthest_point_sampling, lib.fps_sample, xyz.device,
                       xyz.data_ptr(), None if valid_mask is None else valid_mask.data_ptr(),
                       minima.data_ptr() if minima.numel() else None, selected.data_ptr(), b, n,
                       selected.shape[1])
+
+
+def ball_query_members(d2: torch.Tensor, radius: float, nsample: int) -> torch.Tensor:
+    """``d2 [B, S, N]`` squared distances → ``[B, S, min(nsample, N)]``
+    int64: in each row the in-ball indices (``d2 <= radius * radius``) in
+    ascending order, the slots past the last padded with the first, all N
+    where the row has none. On a CUDA tensor one launch of
+    ``csrc/ball_query.cu``, else the plain body; both pick the same
+    integers."""
+    if not _on_card(d2):
+        return ball_query_members_plain(d2, radius, nsample)
+    return ball_query_members_kernel(d2.contiguous(), radius, nsample)
+
+
+ball_query_members.launches = 0
+
+
+def ball_query_members_plain(d2: torch.Tensor, radius: float, nsample: int) -> torch.Tensor:
+    """The plain body on ``d2``'s device: the sentinel N outside the ball, a
+    sort of each row, the first ``nsample`` kept and the sentinels replaced
+    by the row's first entry (N where the row has no member)."""
+    n = d2.shape[-1]
+    idx = torch.arange(n, device=d2.device).expand(d2.shape)
+    idx = torch.where(d2 <= radius * radius, idx, n)  # out of the ball → sentinel N
+    idx = torch.sort(idx, dim=-1).values[..., :nsample]
+    return torch.where(idx == n, idx[..., :1], idx)
+
+
+BALL_QUERY_SIGNATURES = {
+    "ball_query_members": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                          ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                          ctypes.c_void_p]),
+}
+
+
+def ball_query_members_kernel(d2: torch.Tensor, radius: float, nsample: int) -> torch.Tensor:
+    """One launch of ``csrc/ball_query.cu`` → ``[B, S, min(nsample, N)]``
+    int64, equal to ``ball_query_members_plain``'s. On the current stream,
+    output from ``torch.empty``, no host sync: it captures into a CUDA graph.
+    It raises on anything else (there is no fallback) and counts its launch on
+    ``ball_query_members.launches``."""
+    if d2.dtype != torch.float32:
+        raise TypeError(f"ball_query_members_kernel takes float32 d2, got {d2.dtype}")
+    if not (d2.dim() == 3 and 1 <= d2.shape[0] * d2.shape[1] < 2**31
+            and 1 <= d2.shape[2] < 2**31 and nsample >= 1):
+        raise ValueError(f"ball_query_members_kernel takes d2 [B, S, N] with B, S, N >= 1 and "
+                         f"nsample >= 1, got {tuple(d2.shape)}, {nsample}")
+    if not d2.is_contiguous():
+        raise ValueError("ball_query_members_kernel takes a contiguous d2")
+    if not _on_card(d2):
+        raise ValueError(f"ball_query_members_kernel runs on a CUDA device, got d2 on "
+                         f"{d2.device}")
+    b, s, n = d2.shape
+    members = torch.empty((b, s, min(nsample, n)), dtype=torch.int64, device=d2.device)
+    _ball_query_members(d2, radius * radius, members)
+    return members
+
+
+@torch.library.custom_op("ampnet_tpu_torch::ball_query_members", mutates_args=("members",))
+def _ball_query_members(d2: torch.Tensor, threshold: float, members: torch.Tensor) -> None:
+    """One launch of ``csrc/ball_query.cu`` into ``members`` (ctypes rounds
+    ``threshold`` to float32), counted on ``ball_query_members``, as an
+    operator of torch's dispatcher, so a profiler links the kernel to the
+    ranges around the call (see ``_fps_sample``)."""
+    b, s, n = d2.shape
+    lib = cuda_build.load("ball_query", BALL_QUERY_SIGNATURES)
+    cuda_build.launch(ball_query_members, lib.ball_query_members, d2.device, d2.data_ptr(),
+                      members.data_ptr(), b * s, n, members.shape[-1], threshold)
 
 
 def fps_points(points: torch.Tensor, n_samples: int) -> torch.Tensor:

@@ -9,10 +9,9 @@ It imports nothing of JAX or of ``ampnet_tpu``. Phases, each of which fails
 the run (non-zero exit, no result line) when it does not hold:
 
 1. card   -- the ``nvidia-smi`` name and power limit line;
-2. build  -- ``nvcc`` builds the serving path's kernels (``fused_mlp``,
-   ``quantized_mlp``) from ``ampnet_tpu_torch/csrc`` for ``sm_90a``, and
-   ``g++`` the host solver (``balanced_assign.cc``), one process each, all
-   started together;
+2. build  -- ``nvcc`` builds every CUDA source of ``ampnet_tpu_torch/csrc``
+   (``SOURCES``) for ``sm_90a``, and ``g++`` the host solver
+   (``balanced_assign.cc``), one process each, all started together;
 3. kernels -- each kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it (and at the bench geometry, padded
    or prime window counts, ``relu_last=False`` and, for the int8 chain, an
@@ -29,7 +28,12 @@ the run (non-zero exit, no result line) when it does not hold:
    ``batched_farthest_point_sampling`` (``FPS_LEVELS``: the whole-cloud
    PointNet++ step's three levels, 32 x 16,384 -> 1,024, 32 x 1,024 -> 256
    and 32 x 256 -> 64, on two seeds, and the first level under a mask) the
-   plain loop's indices, one launch a call. Each time is taken on two clocks
+   plain loop's indices, one launch a call, and ``ball_query_members``
+   (``BALL_QUERY_LEVELS``: the same step's ball queries, 32 x 1,024 centres
+   over 16,384 points at radius 0.1, 32 x 256 over 1,024 at 0.2 and 32 x 64
+   over 256 at 0.4, 32 members, on the model's own distances from two
+   seeds) the plain body's integers, one launch a call, beside its bound,
+   the bytes of d2 a scan stopping at each row's last member reads. Each time is taken on two clocks
    (``kernel_timing.py``): ``ms``, back-to-back calls as a caller makes them,
    which include the wrapper's host time where that is the slower side, and
    ``device_ms``, the same calls replayed from a CUDA graph. ``fused_mlp_chain``'s
@@ -114,10 +118,10 @@ the run (non-zero exit, no result line) when it does not hold:
    → ``test`` with equal labels; ``demo --arch pointnet2`` at the verify
    recipe; (f) ``test --backend fused`` of the GRU exits 1 with the JAX
    message. Neither MLP-chain kernel launches in any of these runs (the JAX
-   package runs the families only under ``xla``); the FPS kernel launches
-   exactly three times a PointNet++ forward that the card runs (one a set
-   abstraction), more than 0 in each PointNet++ run. The ``families:`` line
-   prints each run's numbers beside the card;
+   package runs the families only under ``xla``); the FPS and ball-query
+   kernels launch exactly three times each a PointNet++ forward that the
+   card runs (one a set abstraction), more than 0 in each PointNet++ run.
+   The ``families:`` line prints each run's numbers beside the card;
 10. geometry -- the eigenfeature columns, the edge block, the geometry tokens
    and distillation at full published width (``geometry_phase``): (a)
    ``preprocess --geom_features`` of phase 8's tiles (``--geom_k 24``, then
@@ -219,7 +223,8 @@ the run (non-zero exit, no result line) when it does not hold:
    holds its launches in phase 14 and (e)'s readings, ``sinkhorn_iterations``' its
    launches in phase 14 and phase 3's cases, ``batched_farthest_point_sampling``'
    its launches in phase 8's windows and phase 9's PointNet++ runs, and phase
-   3's cases), then as the last line
+   3's cases, ``ball_query_members``' its launches in phase 9's PointNet++
+   runs and phase 3's cases), then as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -241,18 +246,22 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from kernel_timing import HBM_BYTES_PER_S
+
 SEED = 0
-# ampnet_tpu_torch/csrc/<name>.cu (nvcc) or .cc (g++, the host solver) -> the
-# package module that declares its C signatures
-SOURCES = {"fused_mlp": "ops.fused_mlp", "quantized_mlp": "ops.quantized_mlp",
-           "device_stamp": "ops.device_stamp", "sinkhorn": "ops.kmeans", "fps": "ops.sampling",
-           "balanced_assign": "native"}
+# ampnet_tpu_torch/csrc/<name>.cu (nvcc) or .cc (g++, the host solver) ->
+# (the package module that declares its C signatures, the table's name there)
+SOURCES = {"fused_mlp": ("ops.fused_mlp", "SIGNATURES"),
+           "quantized_mlp": ("ops.quantized_mlp", "SIGNATURES"),
+           "device_stamp": ("ops.device_stamp", "SIGNATURES"),
+           "sinkhorn": ("ops.kmeans", "SIGNATURES"), "fps": ("ops.sampling", "FPS_SIGNATURES"),
+           "ball_query": ("ops.sampling", "BALL_QUERY_SIGNATURES"),
+           "balanced_assign": ("native", "SIGNATURES")}
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 and
-# int8 on the tensor cores, and HBM3
+# int8 on the tensor cores (HBM3's rate is kernel_timing.py's)
 FP32_PEAK_FLOPS = 67e12
 TF32_PEAK_FLOPS = 495e12
 INT8_PEAK_OPS = 1979e12
-HBM_BYTES_PER_S = 3.35e12
 # fused_mlp_chain issues three TF32 products per fp32 product (3xTF32)
 TF32_PRODUCTS = 3
 # fp32 rounding of sums of up to 256 products, taken in another order than
@@ -2167,27 +2176,30 @@ def family_steps(data_dir, names, dev) -> dict:
     return out
 
 
-# FPS kernel launches a PointNet++ forward: one a set abstraction
+# FPS and ball-query kernel launches a PointNet++ forward: one each a set
+# abstraction
 PN2_FPS_PER_FORWARD = 3
+PN2_BALL_QUERY_PER_FORWARD = 3
 
 
 @contextlib.contextmanager
-def no_kernel_launches(run, fps_runs=None):
-    """Both MLP-chain kernels' counters, and the FPS kernel's, set to 0
-    before ``run`` and read after: the families run only plain torch
-    products, as the JAX package runs them only under ``xla``, but for
-    PointNet++'s sampling, which launches ``csrc/fps.cu`` exactly
-    ``PN2_FPS_PER_FORWARD`` times a ``PointNet2Segmenter`` forward that the
-    card runs. Those forwards are counted as the kernels count launches
+def no_kernel_launches(run, pn2_runs=None):
+    """Both MLP-chain kernels' counters, and the FPS and ball-query kernels',
+    set to 0 before ``run`` and read after: the families run only plain
+    torch products, as the JAX package runs them only under ``xla``, but for
+    PointNet++'s sampling and grouping, which launch ``csrc/fps.cu`` exactly
+    ``PN2_FPS_PER_FORWARD`` and ``csrc/ball_query.cu`` exactly
+    ``PN2_BALL_QUERY_PER_FORWARD`` times a ``PointNet2Segmenter`` forward that
+    the card runs. Those forwards are counted as the kernels count launches
     (``count_launch``: an eager forward, or a bucket graph's replay of the
-    forward it captured). Where ``fps_runs`` is given, ``run`` is a PointNet++
-    run: it must run a forward, and ``fps_runs[run]`` gets its launches and
-    forwards."""
+    forward it captured). Where ``pn2_runs`` is given, ``run`` is a PointNet++
+    run: it must run a forward, and ``pn2_runs[run]`` gets both kernels'
+    launches and the forwards."""
     from ampnet_tpu_torch.models.pointnet2 import PointNet2Segmenter
     from ampnet_tpu_torch.ops.fused_mlp import fused_mlp_chain
     from ampnet_tpu_torch.ops.launch_count import count_launch
     from ampnet_tpu_torch.ops.quantized_mlp import quantized_mlp_chain
-    from ampnet_tpu_torch.ops.sampling import batched_farthest_point_sampling
+    from ampnet_tpu_torch.ops.sampling import ball_query_members, batched_farthest_point_sampling
 
     def pointnet2_forwards():
         """The counter of the PointNet++ forwards the card runs."""
@@ -2199,7 +2211,8 @@ def no_kernel_launches(run, fps_runs=None):
         return forward(self, *args, **kw)
 
     counters = {"fused_mlp_chain": fused_mlp_chain, "quantized_mlp_chain": quantized_mlp_chain}
-    for fn in (*counters.values(), batched_farthest_point_sampling, pointnet2_forwards):
+    for fn in (*counters.values(), batched_farthest_point_sampling, ball_query_members,
+               pointnet2_forwards):
         fn.launches = 0
     PointNet2Segmenter.forward = counted_forward
     try:
@@ -2209,26 +2222,30 @@ def no_kernel_launches(run, fps_runs=None):
     launched = {name: fn.launches for name, fn in counters.items()}
     if any(launched.values()):
         raise RuntimeError(f"{run}: kernels launched {launched}; the families run none")
-    fps = {"launches": batched_farthest_point_sampling.launches,
+    pn2 = {"launches": batched_farthest_point_sampling.launches,
+           "ball_query_launches": ball_query_members.launches,
            "pointnet2_forwards": pointnet2_forwards.launches}
-    if fps["launches"] != PN2_FPS_PER_FORWARD * fps["pointnet2_forwards"] or (
-            fps_runs is not None and not fps["pointnet2_forwards"]):
-        raise RuntimeError(f"{run}: the FPS kernel launched {fps['launches']} times in "
-                           f"{fps['pointnet2_forwards']} PointNet++ forwards; want "
-                           f"{PN2_FPS_PER_FORWARD} each, in at least one forward")
-    if fps_runs is not None:
-        fps_runs[run] = fps
+    forwards = pn2["pointnet2_forwards"]
+    for name, key, per in (("FPS", "launches", PN2_FPS_PER_FORWARD),
+                           ("ball-query", "ball_query_launches", PN2_BALL_QUERY_PER_FORWARD)):
+        if pn2[key] != per * forwards or (pn2_runs is not None and not forwards):
+            raise RuntimeError(f"{run}: the {name} kernel launched {pn2[key]} times in "
+                               f"{forwards} PointNet++ forwards; want {per} each, in at "
+                               f"least one forward")
+    if pn2_runs is not None:
+        pn2_runs[run] = pn2
 
 
-def family_cli(run, argv, expect=0, fps_runs=None):
+def family_cli(run, argv, expect=0, pn2_runs=None):
     """One command line through ``cli.main.main`` on the card with 0
-    MLP-chain kernel launches and the FPS kernel's three a PointNet++ forward
-    (``no_kernel_launches``, which ``fps_runs`` is passed to) → (stdout,
-    stderr, probe record, wall s); the exit code must be ``expect``."""
+    MLP-chain kernel launches and the FPS and ball-query kernels' three each a
+    PointNet++ forward (``no_kernel_launches``, which ``pn2_runs`` is passed
+    to) → (stdout, stderr, probe record, wall s); the exit code must be
+    ``expect``."""
     from ampnet_tpu_torch.cli.main import main as cli_main
 
     out, err = io.StringIO(), io.StringIO()
-    with no_kernel_launches(run, fps_runs), eval_probe() as rec:
+    with no_kernel_launches(run, pn2_runs), eval_probe() as rec:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli_main(argv)
@@ -2301,10 +2318,10 @@ def families_phase(attention_ckpt, dev, card, work) -> dict:
     ``predict_many``; ``test`` of an ``attention,gru`` ensemble; GRU
     ``export`` → ``.pth`` → ``test``, labels equal; ``demo --arch pointnet2``;
     (f) ``--backend fused`` with the GRU checkpoint exits 1. Every run
-    launches neither MLP-chain kernel, and the FPS kernel three times a
-    PointNet++ forward (``no_kernel_launches``). Prints the ``families:``
-    line, whose ``fps_launches`` holds each PointNet++ run's launches and
-    forwards, and returns it."""
+    launches neither MLP-chain kernel, and the FPS and ball-query kernels
+    three times each a PointNet++ forward (``no_kernel_launches``). Prints
+    the ``families:`` line, whose ``pn2_launches`` holds each PointNet++
+    run's FPS and ball-query launches and forwards, and returns it."""
     from ampnet_tpu_torch.core.checkpoint import load_model
     from ampnet_tpu_torch.data.datasets import (
         CloudDataset,
@@ -2328,18 +2345,18 @@ def families_phase(attention_ckpt, dev, card, work) -> dict:
     test_base = ["test", data, "--path_list_files", data, *dev_arg]
     test_ds = EvalCloudDataset(data, test_names)
     samples = [test_ds[i] for i in range(len(test_ds))]
-    ckpts, fps_runs = {}, {}
+    ckpts, all_pn2_runs = {}, {}
     for arch, task in FAM_RUNS:
         run = f"{arch}_{task}"
         out_dir = os.path.join(work, f"fam_{run}")
         windowed = arch in ("attention", "gru")
         points = TRAIN_POINTS if windowed else WHOLE_POINTS
-        pn2_runs = fps_runs if arch == "pointnet2" else None
+        pn2_runs = all_pn2_runs if arch == "pointnet2" else None
         stdout, _, _, wall = family_cli(f"train {run}", [
             "train", data, "--path_list_files", data, "--out_path", out_dir, "--arch", arch,
             "--task", task, "--epochs", "2", "--batch_size", str(TRAIN_BATCH),
             "--number_of_points", str(points), "--number_of_windows", str(TRAIN_WINDOWS),
-            "--seed", str(SEED), *dev_arg], fps_runs=pn2_runs)
+            "--seed", str(SEED), *dev_arg], pn2_runs=pn2_runs)
         last = last_json(stdout[:stdout.rindex("}") + 1])
         if not np.isfinite(last["loss"]):
             raise RuntimeError(f"train {run}: {last}")
@@ -2351,7 +2368,7 @@ def families_phase(attention_ckpt, dev, card, work) -> dict:
         if task == "segmentation":
             stdout, _, rec, wall = family_cli(f"test {run}", [*test_base, "--model_checkpoint",
                                                               ckpt, "--out_path", out_dir],
-                                              fps_runs=pn2_runs)
+                                              pn2_runs=pn2_runs)
             direct = TiledInferencer(model, cfg, max_clusters=18 if windowed else 1, device=dev)
             labels = direct.predict_many([s["points"] for s in samples],
                                          seeds=list(range(len(samples))))
@@ -2393,8 +2410,8 @@ def families_phase(attention_ckpt, dev, card, work) -> dict:
         line["runs"][run] = rec_line
         _say(f"  (c-d) {run}: " + json.dumps(rec_line))
     line.update(family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work,
-                               fps_runs))
-    line["fps_launches"] = fps_runs
+                               all_pn2_runs))
+    line["pn2_launches"] = all_pn2_runs
     line["phase_s"] = time.perf_counter() - t_phase
     _say("families: " + json.dumps(line))
     _say(f"  families phase: {line['phase_s']:.2f} s")
@@ -2402,9 +2419,9 @@ def families_phase(attention_ckpt, dev, card, work) -> dict:
 
 
 def family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work,
-                   fps_runs) -> dict:
-    """(e)-(f) of phase 9 (the PointNet++ demo's FPS launches into
-    ``fps_runs``)."""
+                   pn2_runs) -> dict:
+    """(e)-(f) of phase 9 (the PointNet++ demo's FPS and ball-query launches
+    into ``pn2_runs``)."""
     from ampnet_tpu_torch.cli.main import NON_XLA, build_parser, make_server
     from ampnet_tpu_torch.core.checkpoint import load_model
     from ampnet_tpu_torch.infer.classify import CloudClassifier
@@ -2485,7 +2502,7 @@ def family_serving(ckpts, attention_ckpt, data, test_base, samples, dev, work,
     # demo --arch pointnet2 at the verify recipe, on the card
     stdout, _, _, wall = family_cli("demo pointnet2", [
         "demo", "--out_path", os.path.join(work, "fam_demo"), "--arch", "pointnet2",
-        *DEMO_ARGS, "--device", str(dev)], fps_runs=fps_runs)
+        *DEMO_ARGS, "--device", str(dev)], pn2_runs=pn2_runs)
     summary = last_json(stdout)
     if not np.isfinite(summary["miou"]):
         raise RuntimeError(f"demo --arch pointnet2: {summary}")
@@ -4156,15 +4173,73 @@ def fps_phase(dev) -> list:
     return rows
 
 
+def ball_query_phase(dev) -> list:
+    """Phase 3f: ``ball_query_members`` on its kernel (``csrc/ball_query.cu``)
+    at the whole-cloud PointNet++ step's levels (``BALL_QUERY_LEVELS``), on
+    the model's own squared distances: xyz uniform in the unit cube as
+    ``pn2_fp32.train_b32`` draws it, centres from farthest-point sampling, d2
+    from ``_sqdist``. The kernel must give the plain body's integers on the
+    same block, with one launch a call. Timed on both clocks beside the plain
+    body (``kernel_timing.py``), with the bound: the bytes of d2 a scan that
+    stops at each row's last member reads, and the int64 output."""
+    from kernel_timing import (
+        BALL_QUERY_LEVELS,
+        BALL_QUERY_MEMBERS,
+        ball_query_bound,
+        device_ms,
+        host_ms,
+    )
+
+    from ampnet_tpu_torch.models.pointnet2 import _sqdist, gather_points
+    from ampnet_tpu_torch.ops.sampling import (
+        ball_query_members,
+        ball_query_members_plain,
+        batched_farthest_point_sampling,
+    )
+
+    k, rows = BALL_QUERY_MEMBERS, []
+    for b, s, n, radius in BALL_QUERY_LEVELS:
+        gen = torch.Generator(device=dev).manual_seed(SEED + n)
+        same = True
+        with torch.inference_mode():
+            for _ in range(2):  # two draws
+                xyz = torch.rand((b, n, 3), generator=gen, device=dev)
+                d2 = _sqdist(gather_points(xyz, batched_farthest_point_sampling(xyz, s)), xyz)
+                before = ball_query_members.launches
+                got = ball_query_members(d2, radius, k)
+                launched = ball_query_members.launches - before
+                same &= torch.equal(got, ball_query_members_plain(d2, radius, k))
+            call = lambda: ball_query_members(d2, radius, k)
+            plain = lambda: ball_query_members_plain(d2, radius, k)
+            row = {"name": f"ball_query_members:{n}", "shape": [b, s, n], "radius": radius,
+                   "members": k, "route": "cuda", "source": "ampnet_tpu_torch/csrc/ball_query.cu",
+                   "replaces": None, "indices_equal": same, "launches_a_call": launched,
+                   "ms": host_ms(call, 10), "device_ms": device_ms(call, 10),
+                   "plain_ms": host_ms(plain, 2), "plain_device_ms": device_ms(plain, 2),
+                   **ball_query_bound(d2, radius, k)}
+        del got, d2
+        _say(f"  ball query {n}: " + json.dumps(row))
+        if not same or launched != 1:
+            raise RuntimeError(f"ball query at [{b}, {s}, {n}]: not the plain body's indices or "
+                               f"not one launch: " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def signature_table(source: str) -> dict:
+    """The C signatures ``SOURCES`` names for ``csrc/<source>``."""
+    import importlib
+
+    module, table = SOURCES[source]
+    return getattr(importlib.import_module(f"ampnet_tpu_torch.{module}"), table)
+
+
 def build_phase():
     """Phase 2: each kernel source built by its own ``nvcc``, and the host
     solver by ``g++``, all started together, and loaded."""
-    import importlib
-
     from ampnet_tpu_torch.ops import cuda_build
 
-    tables = {name: importlib.import_module(f"ampnet_tpu_torch.{owner}").SIGNATURES
-              for name, owner in SOURCES.items()}
+    tables = {name: signature_table(name) for name in SOURCES}
 
     def build(name):
         t0 = time.perf_counter()
@@ -4208,6 +4283,7 @@ def main() -> int:
     edge_phase(dev)
     sinkhorn_cases = sinkhorn_phase(dev)
     fps_cases = fps_phase(dev)
+    ball_query_cases = ball_query_phase(dev)
 
     _say("[4/15] model: fused and int8 against the module forward")
     model_phase(model, cfg, dev)
@@ -4333,15 +4409,25 @@ def main() -> int:
     # held against the plain loop in phase 3
     fps_runs = {"tiles_window_fps": tiles_data["host_solver"]["fps_launches"],
                 **{f"families_{run.replace(' ', '_')}": counts["launches"]
-                   for run, counts in families["fps_launches"].items()}}
+                   for run, counts in families["pn2_launches"].items()}}
     fps_total = {"name": "batched_farthest_point_sampling",
                  "case": "one launch a call, one call a set abstraction", "route": "cuda",
                  "source": "ampnet_tpu_torch/csrc/fps.cu", "replaces": None,
                  "launches_by_run": fps_runs, "launches": sum(fps_runs.values()),
                  "cases": fps_cases}
+    # ball_query_members: one launch a set abstraction, three a PointNet++
+    # forward; counted in phase 9's PointNet++ runs, held against the plain
+    # body in phase 3
+    ball_query_runs = {f"families_{run.replace(' ', '_')}": counts["ball_query_launches"]
+                       for run, counts in families["pn2_launches"].items()}
+    ball_query_total = {"name": "ball_query_members",
+                        "case": "one launch a call, one call a set abstraction",
+                        "route": "cuda", "source": "ampnet_tpu_torch/csrc/ball_query.cu",
+                        "replaces": None, "launches_by_run": ball_query_runs,
+                        "launches": sum(ball_query_runs.values()), "cases": ball_query_cases}
     _say(json.dumps({"kernels": [{**fused_total, "cases": fused_cases},
                                  {**int8_total, "cases": int8_cases}, stamp_total,
-                                 sinkhorn_total, fps_total]}))
+                                 sinkhorn_total, fps_total, ball_query_total]}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -10,6 +10,7 @@ Run from the root of a checkout, on a machine with the card::
     python3 kernel_timing.py --kernels sinkhorn  # the k-means at 1 and 4 served clouds
     python3 kernel_timing.py --kernels fps       # farthest-point sampling at PointNet++'s levels
     python3 kernel_timing.py --kernels fps --variants  # ... and its one-layout variants
+    python3 kernel_timing.py --kernels ball_query  # PointNet++'s ball query at its levels
 
 Two clocks, both CUDA events:
 
@@ -60,6 +61,18 @@ same levels, builds of ``csrc/fps.cu`` that keep the running minima of every
 size in the scratch layout (``FPS_VARIANTS``), against the kernel's
 registers.
 
+``--kernels ball_query`` times ``ball_query_members`` on its kernel
+(``csrc/ball_query.cu``, one launch a call) at the three levels of the
+whole-cloud PointNet++ step, on the model's own squared distances (xyz
+uniform in the unit cube, centres from farthest-point sampling, d2 from
+``_sqdist``): 32 x 1,024 centres over 16,384 points at radius 0.1, 32 x 256
+over 1,024 at 0.2 and 32 x 64 over 256 at 0.4, 32 members a centre. Beside
+it: the plain body (both clocks), the whole ``pointnet2.ball_query`` with its
+distances (device clock), and the bound, the bytes the kernel has to touch
+at 3.35 TB/s: each row of d2 up to its 32nd member (all of it where the ball
+holds fewer) and the int64 output, with the share of the block so scanned.
+It raises unless kernel and plain body give the same integers.
+
 Prints one JSON line per chain (or clouds) and, last, the card's ``nvidia-smi`` name
 and power limit. Weights are seeded random (variance 1/fan_in; the int8
 chains quantized per channel from them): a dense chain's time does not
@@ -90,6 +103,8 @@ QUANTIZED_CHAINS = {
     "mlp_b": ((64, 64, 128, 128, 256), True),
 }
 GEOMS = {"serve": (18, 4096), "bench": (288, 2048)}  # (M windows, N points)
+# the NVIDIA H100 SXM data sheet's HBM3 rate (chip_smoke.py prices bytes at it too)
+HBM_BYTES_PER_S = 3.35e12
 
 
 def host_ms(fn, iters: int) -> float:
@@ -363,7 +378,7 @@ def time_variants(kernels) -> None:
     if "fps" in kernels:
         from ampnet_tpu_torch.ops import sampling
 
-        libs = build_variants("fps", sampling.SIGNATURES)
+        libs = build_variants("fps", sampling.FPS_SIGNATURES)
         gen = torch.Generator(device="cuda").manual_seed(37)
         for b, n, s in FPS_LEVELS:
             xyz = torch.rand((b, n, 3), generator=gen, device="cuda")
@@ -496,9 +511,70 @@ def time_fps() -> None:
         print(json.dumps(row), flush=True)
 
 
+# B, centres, points, radius; 32 members a centre
+BALL_QUERY_LEVELS = ((32, 1024, 16384, 0.1), (32, 256, 1024, 0.2), (32, 64, 256, 0.4))
+BALL_QUERY_MEMBERS = 32
+
+
+def scanned_entries(d2: torch.Tensor, radius: float, k: int) -> int:
+    """The entries of ``d2 [B, S, N]`` that a scan stopping at each row's
+    k-th member reads: up to that member, the whole row where it has fewer."""
+    n, total = d2.shape[-1], 0
+    for block in d2:  # one cloud at a time: the counts are int64
+        count = torch.cumsum(block <= radius * radius, dim=-1)
+        full = count[:, -1] >= k
+        stop = torch.where(full, torch.argmax((count >= k).to(torch.uint8), dim=-1) + 1, n)
+        total += int(stop.sum())
+    return total
+
+
+def ball_query_bound(d2: torch.Tensor, radius: float, k: int) -> dict:
+    """The share of ``d2 [B, S, N]`` a scan stopping at each row's k-th
+    member reads (``scanned_entries``), and the bound: those float32 bytes
+    and the int64 output at the HBM rate."""
+    scanned = scanned_entries(d2, radius, k)
+    b, s, _ = d2.shape
+    return {"scanned_share": scanned / d2.numel(),
+            "bound_ms": (4 * scanned + 8 * b * s * k) / HBM_BYTES_PER_S * 1e3}
+
+
+def time_ball_query() -> None:
+    """``ball_query_members`` on the kernel against the plain body at the
+    whole-cloud PointNet++ step's levels."""
+    from ampnet_tpu_torch.models import pointnet2
+    from ampnet_tpu_torch.ops.sampling import (
+        ball_query_members,
+        ball_query_members_plain,
+        batched_farthest_point_sampling,
+    )
+
+    k = BALL_QUERY_MEMBERS
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for b, s, n, radius in BALL_QUERY_LEVELS:
+        xyz = torch.rand((b, n, 3), generator=gen, device="cuda")
+        with torch.inference_mode():
+            centers = pointnet2.gather_points(xyz, batched_farthest_point_sampling(xyz, s))
+            d2 = pointnet2._sqdist(centers, xyz)
+            call = lambda: ball_query_members(d2, radius, k)
+            plain = lambda: ball_query_members_plain(d2, radius, k)
+            whole = lambda: pointnet2.ball_query(centers, xyz, radius, k)
+            if not torch.equal(call(), plain()):
+                raise RuntimeError(f"ball query at [{b}, {s}, {n}]: not the plain body's "
+                                   f"indices")
+            row = {"kernel": "ball_query_members", "shape": [b, s, n], "radius": radius,
+                   "members": k, "host_ms": host_ms(call, 20), "device_ms": device_ms(call, 20),
+                   "plain_host_ms": host_ms(plain, 2), "plain_device_ms": device_ms(plain, 2),
+                   "with_distances_device_ms": device_ms(whole, 5),
+                   **ball_query_bound(d2, radius, k)}
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        print(json.dumps(row), flush=True)
+        del d2
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--kernels", choices=("all", "fused", "int8", "sinkhorn", "fps"),
+    parser.add_argument("--kernels",
+                        choices=("all", "fused", "int8", "sinkhorn", "fps", "ball_query"),
                         default="all",
                         help="which kernels to time (default: the two chains)")
     parser.add_argument("--variants", action="store_true",
@@ -519,6 +595,8 @@ def main() -> int:
         time_sinkhorn()
     if "fps" in kernels:
         time_fps()
+    if "ball_query" in kernels:
+        time_ball_query()
     if args.variants:
         time_variants(kernels)
     if args.passes:
